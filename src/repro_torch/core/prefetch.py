@@ -1,0 +1,233 @@
+"""Asynchronous data-pipelining engine — the mechanism behind the paper's
+"tell the file system to start pipelining the data to the target server".
+
+Two modes, one interface:
+
+* **host objects** (numpy arrays, bytes, pytrees): a background thread copies
+  the object and registers the replica with the LocStore, so by the time the
+  consumer task starts, ``store.get(name, at=node)`` is a local hit.
+* **torch tensors**: every tensor of the value is copied with
+  ``.to(device, non_blocking=True)`` (the copy is queued on the current
+  stream); the engine keeps the device copy and ``wait()`` blocks only if the
+  consumer arrives before the stage ran.
+
+Every prefetch targets a storage **tier** on the destination node: ``"hbm"``
+means device prefetch (the replica is promoted into device memory and, when a
+``device_of`` map is present, its tensors are copied to that device; a value
+that holds no tensor gets no device copy); lower tiers stage into
+host DRAM or the burst buffer without occupying device memory. A flat store
+clamps unknown tiers to its top tier, so the engine works unchanged against
+the original two-tier model.
+
+The engine is deliberately small: policy lives in the ProactiveScheduler; this
+is only the data plane.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.locstore import LocStore
+
+__all__ = ["PrefetchEngine"]
+
+
+def _has_tensor(value: Any) -> bool:
+    if isinstance(value, torch.Tensor):
+        return True
+    if isinstance(value, dict):
+        return any(_has_tensor(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return any(_has_tensor(v) for v in value)
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return any(_has_tensor(getattr(value, f.name))
+                   for f in dataclasses.fields(value))
+    return False
+
+
+def _to_device(value: Any, dev: torch.device) -> Any:
+    """``value`` with every tensor in it copied to ``dev`` (dicts, lists,
+    tuples and dataclasses are rebuilt; anything else is kept as is)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dev, non_blocking=True)
+    if isinstance(value, dict):
+        return {k: _to_device(v, dev) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_device(v, dev) for v in value)
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return dataclasses.replace(value, **{
+            f.name: _to_device(getattr(value, f.name), dev)
+            for f in dataclasses.fields(value) if f.init})
+    return value
+
+
+class PrefetchEngine:
+    def __init__(self, store: LocStore, *, max_workers: int = 4,
+                 device_of: Callable[[int], Any] | None = None) -> None:
+        """``device_of(node) -> torch.device`` enables device-level prefetch;
+        without it the engine replicates at host level only."""
+        self.store = store
+        self.device_of = device_of
+        self._pool = ThreadPoolExecutor(max_workers=max_workers,
+                                        thread_name_prefix="xflow-prefetch")
+        self._inflight: dict[tuple[str, int], Future] = {}
+        self._device_copies: dict[tuple[str, int], Any] = {}
+        # consumer task -> replicas pinned do-not-evict on its behalf
+        self._pins_for: dict[str, list[tuple[str, int]]] = {}
+        self._lock = threading.Lock()
+        self.submitted = 0
+        self.completed = 0
+        self.skipped_read_once = 0
+        self.bytes_prefetched = 0.0
+        # failure hygiene: a dead node's in-flight handles, device copies and
+        # pin records describe replicas that no longer exist — purge them on
+        # the store's drop events so a later submit() re-stages instead of
+        # returning a handle to vanished data, and release() does not unpin
+        # replicas the store already forgot.
+        store.loc.subscribe(self._on_store_event)
+
+    def _on_store_event(self, event: str, key: Any, placement: Any) -> None:
+        if event == "drop_node":
+            with self._lock:
+                for k in [k for k in self._inflight if k[1] == key]:
+                    del self._inflight[k]
+                for k in [k for k in self._device_copies if k[1] == key]:
+                    del self._device_copies[k]
+                for pins in self._pins_for.values():
+                    pins[:] = [p for p in pins if p[1] != key]
+        elif event == "drop":
+            with self._lock:
+                for k in [k for k in self._inflight if k[0] == key]:
+                    del self._inflight[k]
+                for k in [k for k in self._device_copies if k[0] == key]:
+                    del self._device_copies[k]
+                for pins in self._pins_for.values():
+                    pins[:] = [p for p in pins if p[0] != key]
+
+    # ------------------------------------------------------------------ api
+    def submit(self, name: str, dst: int, *, tier: str = "hbm",
+               pin_for: str | None = None) -> Future:
+        """Start pipelining ``name`` to node ``dst``'s ``tier``.
+
+        Idempotent per (name, dst) while a stage is in flight — but once the
+        previous stage has landed, a request for a tier *faster* than where
+        the replica sits NOW re-submits (a session cache parked back into
+        the burst buffer must still be promotable to HBM by every later
+        warm-up; the store may also have demoted or overwritten the replica
+        since the last stage, so the decision reads live placement, not a
+        recorded snapshot). ``pin_for`` names the consuming task: the
+        replica is pinned do-not-evict in the store until :meth:`release` is
+        called for that task, so capacity pressure cannot undo the prefetch
+        before its consumer runs."""
+        key = (name, dst)
+        with self._lock:
+            fut = self._inflight.get(key)
+            if fut is not None and not self._should_restage(fut, name, dst,
+                                                            tier):
+                if pin_for is not None:
+                    self._pin(name, dst, pin_for)
+                return fut
+            fut = self._pool.submit(self._stage, name, dst, tier)
+            self._inflight[key] = fut
+            self.submitted += 1
+            if pin_for is not None:
+                self._pin(name, dst, pin_for)
+            return fut
+
+    def _should_restage(self, fut: Future, name: str, dst: int,
+                        tier: str) -> bool:
+        """A completed stage is stale when the replica is gone from ``dst``
+        or parked below the requested tier (read-once objects never
+        re-stage — their mode exists to avoid exactly that)."""
+        if not fut.done():
+            return False
+        mode_of = getattr(self.store, "write_mode", None)
+        if mode_of is not None and mode_of(name) == "around":
+            return False
+        hier = self.store.hierarchy
+        p = self.store.loc.lookup(name)
+        if p is None:
+            return False                       # object deleted: nothing to do
+        if not p.resident_on(dst):
+            return True                        # evicted off the node entirely
+        return hier.rank(hier.normalize(tier)) < hier.rank(p.tier_on(dst))
+
+    def _pin(self, name: str, dst: int, for_task: str) -> None:
+        """Caller holds the lock. Pin once per (task, name, dst)."""
+        if (name, dst) in self._pins_for.setdefault(for_task, []):
+            return
+        self.store.pin(name, dst)
+        self._pins_for[for_task].append((name, dst))
+
+    def release(self, for_task: str) -> int:
+        """Unpin every replica pinned on behalf of ``for_task`` (the consumer
+        finished — the prefetched copies are fair eviction game again).
+        Returns how many pins were released."""
+        with self._lock:
+            pinned = self._pins_for.pop(for_task, [])
+        for name, dst in pinned:
+            self.store.unpin(name, dst)
+        return len(pinned)
+
+    def _stage(self, name: str, dst: int, tier: str) -> Any:
+        value, tr = self.store.get(name)  # metadata read, no accounting
+        mode_of = getattr(self.store, "write_mode", None)
+        if mode_of is not None and mode_of(name) == "around":
+            # write-around objects are read exactly once: caching a replica
+            # ahead of time would waste the tier the mode exists to protect
+            with self._lock:
+                self.completed += 1
+                self.skipped_read_once += 1
+            return value
+        if tier == "hbm" and self.device_of is not None \
+                and _has_tensor(value):
+            dev = self.device_of(dst)
+            if dev is not None:
+                value = _to_device(value, dev)
+                with self._lock:
+                    self._device_copies[(name, dst)] = value
+        placement = self.store.replicate(name, [dst], tier=tier)
+        with self._lock:
+            self.completed += 1
+            self.bytes_prefetched += float(placement.xattr.get("size", 0.0))
+        return value
+
+    def wait(self, name: str, dst: int, timeout: float | None = None) -> bool:
+        """Block until a previously-submitted prefetch lands; False if none."""
+        key = (name, dst)
+        with self._lock:
+            fut = self._inflight.get(key)
+        if fut is None:
+            return False
+        fut.result(timeout=timeout)
+        return True
+
+    def device_copy(self, name: str, dst: int) -> Any | None:
+        """The device-resident replica, if device-level prefetch ran."""
+        with self._lock:
+            return self._device_copies.get((name, dst))
+
+    def drain(self) -> None:
+        with self._lock:
+            futs = list(self._inflight.values())
+        for f in futs:
+            f.result()
+
+    def shutdown(self) -> None:
+        self.drain()
+        self._pool.shutdown(wait=True)
+
+    # ------------------------------------------------------------ reporting
+    def report(self) -> dict[str, float]:
+        with self._lock:
+            pins = sum(len(v) for v in self._pins_for.values())
+        return {"submitted": float(self.submitted),
+                "completed": float(self.completed),
+                "skipped_read_once": float(self.skipped_read_once),
+                "pins_held": float(pins),
+                "bytes_prefetched": self.bytes_prefetched}
