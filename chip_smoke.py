@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one H100 and check every kernel on its path.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                          # the whole check
+    python3 chip_smoke.py --sweep-decode-chunks    # decode chunk sizes only
 
 Run from the root of a checkout, on a machine with one CUDA card. It imports
 nothing of JAX and nothing of the reference package ``repro``; it builds the
@@ -11,9 +12,13 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    and count);
 2. prints the build (seconds, and ptxas' registers / spills per kernel);
 3. holds each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the serving path's shapes and the reference's edge shapes,
-   and times kernel, plain version, one PyTorch library call
-   (``scaled_dot_product_attention``, a yardstick only) and the bound;
+   and bf16, at the serving path's shapes, the reference's edge shapes and
+   the redesigned kernels' own edges (ragged tiles, offsets, windows that cut
+   a tile or a chunk), and times kernel, plain version and PyTorch library
+   calls (``scaled_dot_product_attention``, a yardstick only) on the device:
+   each timed loop is captured in a CUDA graph and replayed between two
+   events, so the host's enqueue work is not in the time; the host enqueue
+   time per wrapper call is printed on its own line;
 4. serves granite-3-2b at full published width (40 layers, bf16, random
    weights from a seed) with two ServingEngines on one tiered LocStore behind
    the Router: 12 sessions, 32 pooled decode steps, a park + warm + resume
@@ -25,6 +30,10 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    1536-token prompt (longer than the 1024 window), 16 decode steps;
 6. prints the kernels' JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
+
+With ``--sweep-decode-chunks`` it only times the decode kernel at the path's
+shapes at each chunk size of CHUNKS_TRIED (how ``chunk_size`` was chosen) and
+prints no result line.
 
 Any failure exits non-zero before the last line. Without a CUDA device, or
 without the repository around it, it exits non-zero at once.
@@ -48,6 +57,13 @@ PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 TOL = {"float32": 2e-5, "bfloat16": 0.05}
+# bf16 is held element by element as well, to BF16_ATOL + BF16_RTOL * |plain|:
+# kernel and plain version each round the output to bf16 (one ulp, 2^-7
+# relative, apart at most) and the flash kernel rounds P to bf16 before P V.
+# The flat 0.05 alone is the size of a long row's outputs (std sqrt(e / n) for
+# n keys) and would let a fault that touches only long rows through; PERF.md
+# section 6 shows planted faults failing this check.
+BF16_ATOL, BF16_RTOL = 4e-3, 2.0 ** -6
 # f32 sum order: the kernels accumulate the online softmax tile by tile and
 # the plain version sums the materialised row at once; both are f32 and the
 # measured gap stays far inside 2e-5 (no wider tolerance is needed).
@@ -72,19 +88,46 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------------ timing
-def time_ms(torch, fn, iters: int) -> float:
-    """Mean device milliseconds per call, by CUDA events, after a warm-up."""
-    for _ in range(3):
-        fn()
+def time_ms(torch, fn, calls: int, reps: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn``: ``calls`` calls (each on
+    the next rotating input set) are captured in one CUDA graph, which is
+    replayed ``reps`` times between two CUDA events. The host work of a call
+    (checks, allocation, the ctypes call) is not in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(reps):
+        graph.replay()
     e1.record()
     e1.synchronize()
-    return e0.elapsed_time(e1) / iters
+    del graph
+    return e0.elapsed_time(e1) / (reps * calls)
+
+
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Host microseconds to enqueue one call of ``fn`` (no synchronisation
+    inside the loop; the device queue is far from full at this count)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
 
 
 def rotating(n: int):
@@ -117,6 +160,52 @@ FLASH_PATH = [("granite-3-2b", (1, 1024, 1024, 32, 8, 64, True, 0, 0)),
               ("gemma3-12b local", (1, 1536, 1536, 16, 8, 240, True, 1024, 0))]
 DECODE_PATH = [("granite-3-2b", (8, 2048, 32, 8, 64, 0)),
                ("gemma3-12b local", (8, 2048, 16, 8, 240, 1024))]
+# the redesigned kernels' own edges (tests/test_torch_kernels.py)
+FLASH_EDGE = [
+    # B, Sq, Sk, Hq, Hkv, hd, causal, window, off
+    (1, 130, 130, 2, 2, 48, True, 0, 0),
+    (2, 70, 200, 4, 2, 80, True, 0, 130),
+    (1, 77, 77, 8, 2, 168, True, 0, 0),
+    (1, 200, 200, 4, 2, 72, True, 50, 0),
+    (1, 150, 150, 2, 1, 240, True, 100, 0),
+    (2, 33, 97, 4, 4, 64, False, 0, 0),
+    (1, 64, 300, 8, 2, 64, True, 37, 236),
+    (1, 140, 140, 4, 2, 176, True, 0, 0),
+]
+DECODE_EDGE = [
+    # B, S, Hq, Hkv, hd, window, lengths (decode chunk 192 at hd <= 128)
+    (4, 600, 8, 2, 64, 0, [1, 192, 193, 5000]),
+    (2, 1024, 4, 2, 64, 100, [250, 650]),
+    (2, 2048, 4, 2, 240, 50, [100, 1900]),
+    (3, 700, 16, 2, 128, 0, [700, 1, 513]),
+    (2, 512, 24, 2, 64, 0, [512, 130]),
+]
+DESIGN = {"flash_attention": "wgmma+tma", "decode_attention": "chunked-v16"}
+CHUNKS_TRIED = (128, 192, 256, 320, 384, 512)   # --sweep-decode-chunks
+
+
+def path_lengths(torch, B: int, S: int, seed: int):
+    """Seeded decode lengths in 1..S, the first S and the last 1."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    lens[0] = S
+    lens[-1] = 1
+    return lens
+
+
+def compare(torch, out, want) -> tuple[float, float | None, bool]:
+    """(max |out - plain|, worst |out - plain| / (BF16_ATOL + BF16_RTOL *
+    |plain|) for bf16, within tolerance). NaN anywhere fails."""
+    diff = (out.float() - want.float()).abs()
+    err = diff.max().item()
+    ok = math.isfinite(err) and err <= TOL[str(out.dtype).removeprefix("torch.")]
+    ratio = None
+    if out.dtype == torch.bfloat16:
+        ratio = (diff / (BF16_ATOL + BF16_RTOL * want.float().abs())).max().item()
+        ok = ok and ratio <= 1.0
+    return err, ratio, ok
 
 
 def flash_work(case, itemsize: int) -> tuple[float, float]:
@@ -170,15 +259,19 @@ def kernel_phase(torch, kern) -> dict:
         return lens
 
     worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    failed = []
 
     def check(name, label, dt, out, want):
-        err = (out.float() - want.float()).abs().max().item()
-        tol = TOL[str(dt).removeprefix("torch.")]
-        ok = math.isfinite(err) and err <= tol
-        print(f"  {name:16s} {label:34s} {str(dt)[6:]:8s} "
-              f"max_abs_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}",
+        """Prints one comparison; a failure is listed, and the phase stops
+        once every comparison of its loop was printed."""
+        err, ratio, ok = compare(torch, out, want)
+        rel = "" if ratio is None else \
+            f" err/(atol+rtol|plain|)={ratio:.3f}"
+        print(f"  {name:16s} {label:40s} {str(dt)[6:]:8s} "
+              f"max_abs_err={err:.3e}{rel} {'ok' if ok else 'FAIL'}",
               flush=True)
-        need(ok, f"{name} {label} {dt}: max_abs_err {err} > {tol}")
+        if not ok:
+            failed.append(f"{name} {label} {dt}")
         worst[name] = max(worst[name], err)
         return err
 
@@ -186,6 +279,7 @@ def kernel_phase(torch, kern) -> dict:
           flush=True)
     for dt in (torch.float32, torch.bfloat16):
         for label, case in [(f"case{i}", c) for i, c in enumerate(FLASH_CASES)] \
+                + [(f"edge{i}", c) for i, c in enumerate(FLASH_EDGE)] \
                 + FLASH_PATH:
             B, Sq, Sk, Hq, Hkv, hd, causal, window, off = case
             q, k, v = mk((B, Sq, Hq, hd), dt), mk((B, Sk, Hkv, hd), dt), \
@@ -205,6 +299,15 @@ def kernel_phase(torch, kern) -> dict:
             torch.cuda.synchronize()
             check("decode_attention", f"{label} {case}", dt, out,
                   ref.decode_attention_ref(q, kc, vc, lens, window=window))
+        for i, (B, S, Hq, Hkv, hd, window, lens) in enumerate(DECODE_EDGE):
+            q = mk((B, Hq, hd), dt)
+            kc, vc = mk((B, S, Hkv, hd), dt), mk((B, S, Hkv, hd), dt)
+            lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            out = decode(q, kc, vc, lt, window=window)
+            torch.cuda.synchronize()
+            check("decode_attention", f"edge{i} {(B, S, Hq, Hkv, hd, window)} "
+                  f"lengths {lens}", dt, out,
+                  ref.decode_attention_ref(q, kc, vc, lt, window=window))
         # the length-1 edge and lengths past the cache (clamped to S)
         q = mk((2, 4, 64), dt)
         kc, vc = mk((2, 128, 2, 64), dt), mk((2, 128, 2, 64), dt)
@@ -214,9 +317,11 @@ def kernel_phase(torch, kern) -> dict:
             torch.cuda.synchronize()
             check("decode_attention", label, dt, out,
                   ref.decode_attention_ref(q, kc, vc, lt))
+    need(not failed, f"{len(failed)} kernel checks failed: {failed}")
 
-    print("[kernels] times at the serving path's shapes (bf16; CUDA events, "
-          "cold-L2 rotation)", flush=True)
+    print("[kernels] times at the serving path's shapes (bf16; CUDA graph of "
+          "calls over rotating input sets, replayed between CUDA events)",
+          flush=True)
     rows = {}
     for name, case in FLASH_PATH:
         B, Sq, Sk, Hq, Hkv, hd, causal, window, off = case
@@ -235,29 +340,49 @@ def kernel_phase(torch, kern) -> dict:
             mask &= qpos - kpos < window
         nxt = rotating(n)
 
-        def lib(s):
+        def lib_mask(s):
             q, k, v = s
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
+        def lib_causal(s):
+            q, k, v = s
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True).transpose(1, 2)
+
+        libs = [("scaled_dot_product_attention(attn_mask, enable_gqa)",
+                 lib_mask)]
+        if causal and window == 0 and off == 0 and Sq == Sk:
+            libs.append(("scaled_dot_product_attention(is_causal, enable_gqa)",
+                         lib_causal))
         q, k, v = sets[0]
+        want = ref.flash_attention_ref(q, k, v, **kw)
         err = check("flash_attention", f"timed {name}", dt, flash(q, k, v, **kw),
-                    ref.flash_attention_ref(q, k, v, **kw))
-        lib_err = (lib(sets[0]).float()
-                   - ref.flash_attention_ref(q, k, v, **kw).float()
-                   ).abs().max().item()
+                    want)
+        need(not failed, f"kernel check failed: {failed}")
         t_k = time_ms(torch, lambda: flash(*sets[nxt()], **kw), 20)
-        t_p = time_ms(torch, lambda: ref.flash_attention_ref(*sets[nxt()], **kw), 5)
-        t_l = time_ms(torch, lambda: lib(sets[nxt()]), 20)
+        t_p = time_ms(torch, lambda: ref.flash_attention_ref(*sets[nxt()], **kw), 4)
+        lib_times = []
+        for call, lib in libs:
+            lib_err = (lib(sets[0]).float() - want.float()).abs().max().item()
+            t_l = time_ms(torch, lambda: lib(sets[nxt()]), 20)
+            print(f"  flash_attention  {name:18s} library {call}: {t_l:.4f} ms "
+                  f"(err {lib_err:.2e})", flush=True)
+            lib_times.append((t_l, call))
+        t_l, lib_call = min(lib_times)
+        h_us = host_us(torch, lambda: flash(q, k, v, **kw))
         b_ms, b_by = bound_ms(ops, nbytes, "bfloat16")
         print(f"  flash_attention  {name:18s} kernel_ms={t_k:.4f} "
-              f"plain_ms={t_p:.4f} library_ms={t_l:.4f} (library err "
-              f"{lib_err:.2e}) bound_ms={b_ms:.5f} by {b_by} "
-              f"({ops:.3e} op, {nbytes:.3e} B)", flush=True)
+              f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
+              f"by {b_by} ({ops:.3e} op, {nbytes:.3e} B); kernel at "
+              f"{ops / t_k / 1e9:.1f} TFLOP/s", flush=True)
+        print(f"  flash_attention  {name:18s} host enqueue {h_us:.1f} us per "
+              f"wrapper call", flush=True)
         rows.setdefault("flash_attention", dict(
-            ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-            bound_by=b_by, shape_err=err))
+            ms=t_k, plain_ms=t_p, library_ms=t_l, library_call=lib_call,
+            bound_ms=b_ms, bound_by=b_by, shape_err=err, host_us=h_us))
     for name, case in DECODE_PATH:
         B, S, Hq, Hkv, hd, window = case
         dt = torch.bfloat16
@@ -273,6 +398,7 @@ def kernel_phase(torch, kern) -> dict:
             mask &= (ln - 1 - kpos) < window
         mask = mask[:, None, None, :]
         nxt = rotating(n)
+        lib_call = "scaled_dot_product_attention(attn_mask, enable_gqa)"
 
         def lib(s):
             q, kc, vc = s
@@ -281,27 +407,66 @@ def kernel_phase(torch, kern) -> dict:
                 attn_mask=mask, enable_gqa=True)[:, :, 0]
 
         q, kc, vc = sets[0]
+        want = ref.decode_attention_ref(q, kc, vc, lens, window=window)
         err = check("decode_attention", f"timed {name}", dt,
-                    decode(q, kc, vc, lens, window=window),
-                    ref.decode_attention_ref(q, kc, vc, lens, window=window))
-        lib_err = (lib(sets[0]).float() - ref.decode_attention_ref(
-            q, kc, vc, lens, window=window).float()).abs().max().item()
+                    decode(q, kc, vc, lens, window=window), want)
+        need(not failed, f"kernel check failed: {failed}")
+        lib_err = (lib(sets[0]).float() - want.float()).abs().max().item()
         t_k = time_ms(torch, lambda: decode(*sets[nxt()], lens, window=window),
                       50)
         t_p = time_ms(torch, lambda: ref.decode_attention_ref(
             *sets[nxt()], lens, window=window), 10)
         t_l = time_ms(torch, lambda: lib(sets[nxt()]), 50)
+        h_us = host_us(torch, lambda: decode(q, kc, vc, lens, window=window))
         b_ms, b_by = bound_ms(ops, nbytes, "bfloat16")
         print(f"  decode_attention {name:18s} kernel_ms={t_k:.4f} "
               f"plain_ms={t_p:.4f} library_ms={t_l:.4f} (library err "
               f"{lib_err:.2e}) bound_ms={b_ms:.5f} by {b_by} lengths="
-              f"{lens.tolist()} ({ops:.3e} op, {nbytes:.3e} B)", flush=True)
+              f"{lens.tolist()} ({ops:.3e} op, {nbytes:.3e} B); kernel at "
+              f"{nbytes / t_k / 1e6:.0f} GB/s, chunk {kern['chunk_size'](hd)}",
+              flush=True)
+        print(f"  decode_attention {name:18s} host enqueue {h_us:.1f} us per "
+              f"wrapper call", flush=True)
         rows.setdefault("decode_attention", dict(
-            ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-            bound_by=b_by, shape_err=err))
+            ms=t_k, plain_ms=t_p, library_ms=t_l, library_call=lib_call,
+            bound_ms=b_ms, bound_by=b_by, shape_err=err, host_us=h_us))
     for name in rows:
         rows[name]["max_abs_err"] = worst[name]
     return rows
+
+
+def sweep_decode_chunks(torch, ref) -> None:
+    """Device ms of the decode kernel at each of CHUNKS_TRIED keys per block,
+    at the serving path's shapes, bf16, for three seeded length sets; each
+    output is held to the plain version first."""
+    from repro_torch.kernels import decode_attention as dmod
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    print("[sweep] decode_attention device ms by chunk size (CUDA graph of "
+          "calls over rotating input sets)", flush=True)
+    for name, (B, S, Hq, Hkv, hd, window) in DECODE_PATH:
+        n = max(1, min(8, math.ceil(100e6 / (4 * B * S * Hkv * hd))))
+        sets = [tuple(torch.randn(s, generator=gen, device="cuda")
+                      .to(torch.bfloat16)
+                      for s in ((B, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
+                for _ in range(n)]
+        nxt = rotating(n)
+        scale = hd ** -0.5
+        for seed in (SEED, SEED + 1, SEED + 2):
+            lens = path_lengths(torch, B, S, seed)
+            want = ref.decode_attention_ref(*sets[0], lens, window=window)
+            dmod.decode_attention(*sets[0], lens, window=window)  # its checks
+            tried = []
+            for chunk in CHUNKS_TRIED:
+                err, ratio, ok = compare(torch, dmod._launch(
+                    *sets[0], lens, window, scale, chunk), want)
+                need(ok, f"decode chunk {chunk} {name}: err {err}, ratio "
+                     f"{ratio}")
+                tried.append((chunk, time_ms(torch, lambda: dmod._launch(
+                    *sets[nxt()], lens, window, scale, chunk), 50)))
+            print(f"  {name:18s} lengths {lens.tolist()} (chunk_size "
+                  f"{dmod.chunk_size(hd)}): " + ", ".join(
+                      f"{c}: {t:.4f}" for c, t in tried), flush=True)
 
 
 # ------------------------------------------------------------------ serve phases
@@ -570,19 +735,29 @@ def serve_gemma(torch, kern) -> dict:
 
 # ------------------------------------------------------------------ main
 def ptxas_summary(lines: list[str]) -> list[str]:
+    """ptxas' registers, spills and warnings per kernel instance."""
+    args = {"f": "f32", "13__nv_bfloat16": "bf16"}
     out, name = [], None
     for ln in lines:
-        m = re.search(r"(flash_kernel|decode_merge_kernel|decode_kernel)"
-                      r"I(13__nv_bfloat16|f)Li(\d+)E", ln)
+        m = re.search(r"(flash_tc_kernel|flash_kernel|decode_chunk_kernel|"
+                      r"decode_merge_kernel)I((?:Li\d+E|f|13__nv_bfloat16)+)E",
+                      ln)
         if m:
-            name = (f"{m.group(1)}<{'bf16' if 'bfloat' in m.group(2) else 'f32'}"
-                    f",{m.group(3)}>")
+            parts = re.findall(r"Li(\d+)E|(f|13__nv_bfloat16)", m.group(2))
+            name = f"{m.group(1)}<" + ",".join(
+                a or args[t] for a, t in parts) + ">"
+        elif "warning" in ln:
+            out.append(ln)
         elif name and ("Used" in ln or "spill" in ln):
             out.append(f"{name}: {ln.replace('ptxas info    : ', '')}")
     return out
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    sweep = argv == ["--sweep-decode-chunks"]
+    if argv and not sweep:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -598,7 +773,8 @@ def main() -> int:
 
     import repro_torch.serve.engine  # noqa: F401 - the whole serving path
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (chunk_size,
+                                                      decode_attention)
     from repro_torch.kernels.flash_attention import flash_attention
     need("jax" not in sys.modules and "repro" not in sys.modules,
          "the port pulled in jax or the reference package")
@@ -616,13 +792,23 @@ def main() -> int:
     for ln in ptxas_summary(info.ptxas):
         print(f"[build] {ln}", flush=True)
     lib = _build.load()
-    print(f"[build] dynamic shared memory per block: flash_attention hd 64 "
-          f"{lib.repro_flash_attention_smem(64)} B, hd 240 "
-          f"{lib.repro_flash_attention_smem(240)} B; decode_attention G 4 hd "
-          f"64 {lib.repro_decode_attention_smem(4, 64)} B, G 2 hd 240 "
-          f"{lib.repro_decode_attention_smem(2, 240)} B", flush=True)
+    print(f"[build] dynamic shared memory per block: flash_attention bf16 "
+          f"hd 64 {lib.repro_flash_attention_smem(64, 1)} B, hd 240 "
+          f"{lib.repro_flash_attention_smem(240, 1)} B; f32 hd 64 "
+          f"{lib.repro_flash_attention_smem(64, 0)} B", flush=True)
+    sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"),
+                           "-sass", str(info.path)], capture_output=True,
+                          text=True)
+    n_gmma = sass.stdout.count("HGMMA")
+    print(f"[build] tensor-core wgmma (HGMMA) instructions in the library's "
+          f"SASS: {n_gmma}", flush=True)
+    need(n_gmma > 0, "the bf16 flash kernel has no wgmma in its SASS")
 
-    kern = {"ref": ref, "flash": flash_attention, "decode": decode_attention}
+    kern = {"ref": ref, "flash": flash_attention, "decode": decode_attention,
+            "chunk_size": chunk_size}
+    if sweep:
+        sweep_decode_chunks(torch, ref)
+        return 0
     t0 = time.perf_counter()
     rows = kernel_phase(torch, kern)
     print(f"[kernels] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -648,7 +834,9 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "library_call": r["library_call"],
+                        "design": DESIGN[name], "host_us": r["host_us"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -658,7 +846,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = main(sys.argv[1:])
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         rc = 1

@@ -73,7 +73,7 @@ def _ptxas_lines(text: str) -> list[str]:
     return [ln.strip() for ln in text.splitlines()
             if "ptxas info" in ln and ("Used" in ln or "Compiling" in ln
                                        or "spill" in ln)
-            or "bytes stack frame" in ln]
+            or "bytes stack frame" in ln or "ptxas warning" in ln]
 
 
 def _compile(sources: list[Path], out: Path) -> list[str]:
@@ -106,20 +106,20 @@ def _compile(sources: list[Path], out: Path) -> list[str]:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                          ci, ci, ci, ci, cf, ci, vp]
+                                          ci, ci, ci, ci, cf, ci, vp, vp]
     lib.repro_flash_attention.restype = ci
     lib.repro_decode_attention.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                            ci, ci, ci, ci, cf, ci, ci, vp]
     lib.repro_decode_attention.restype = ci
-    lib.repro_flash_attention_smem.argtypes = [ci]
+    lib.repro_flash_attention_smem.argtypes = [ci, ci]
     lib.repro_flash_attention_smem.restype = ctypes.c_longlong
-    lib.repro_decode_attention_smem.argtypes = [ci, ci]
-    lib.repro_decode_attention_smem.restype = ctypes.c_longlong
 
 
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built first if this checkout has none."""
     global _lib, _info
+    if _lib is not None:              # the per-launch path: no lock
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib

@@ -5,9 +5,10 @@ reference's ``kernels/decode_attention.py``. For a CUDA tensor this wrapper
 launches it or raises; for a CPU tensor it returns the plain version
 (:func:`repro_torch.kernels.ref.decode_attention_ref`).
 
-The wrapper splits each (b, kv-head)'s live key range over ``nsplit`` blocks
-when ``B * Hkv`` blocks alone would leave most of the card's SMs idle; the
-kernel then merges the partial softmax states in a second pass.
+The kernel's grid is fixed by the cache length: one block per
+:func:`chunk_size` keys of each (b, kv-head) (:func:`chunk_grid`). A block
+streams the live rows of its chunk and a second small kernel merges the
+chunks' partial softmax states in chunk order.
 """
 
 from __future__ import annotations
@@ -19,23 +20,21 @@ import torch
 from repro_torch.kernels import _build, ref
 
 MAX_HD = 256
-MAX_SMEM = 227 * 1024          # dynamic shared memory one block may use
+CHUNK = 192            # keys per block at hd <= 128 } tried on the card:
+CHUNK_WIDE = 128       # keys per block at hd > 128  } PERF.md, section 6
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements in a 16-byte load
 
 
-def _hd_bucket(hd: int) -> int:
-    return 64 if hd <= 64 else 128 if hd <= 128 else 256
+def chunk_size(hd: int) -> int:
+    """Keys per block: a wide row (hd > 128) fills a warp on its own and takes
+    a shorter chunk, so that as many blocks stream."""
+    return CHUNK if hd <= 128 else CHUNK_WIDE
 
 
-def _block_k(hd: int) -> int:
-    return 32 if _hd_bucket(hd) == 256 else 64
-
-
-def n_splits(B: int, Hkv: int, S: int, hd: int, n_sms: int) -> int:
-    """Blocks per (b, kv-head): enough for two blocks per SM, but never more
-    than the cache has key tiles."""
-    want = -(-2 * n_sms // (B * Hkv))
-    return max(1, min(want, -(-S // _block_k(hd))))
+def chunk_grid(S: int, chunk: int = CHUNK) -> int:
+    """Blocks per (b, kv-head): the grid's first dimension, fixed by S."""
+    return -(-S // chunk)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -77,29 +76,37 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention: inputs must be contiguous")
     if B == 0 or S == 0:
         raise ValueError("decode_attention: empty input")
+    vec = _VEC[q.dtype]
+    if hd % vec:
+        raise ValueError(f"decode_attention: head dim {hd} is not a multiple "
+                         f"of {vec}: the kernel reads 16-byte vectors of "
+                         f"{q.dtype}")
+    if (q.data_ptr() | k_cache.data_ptr() | v_cache.data_ptr()) % 16:
+        raise ValueError("decode_attention: q and the caches must start on a "
+                         "16-byte boundary (the kernel's vector loads)")
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    return _launch(q, k_cache, v_cache, lengths, window, scale, chunk_size(hd))
+
+
+def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            lengths: torch.Tensor, window: int, scale: float,
+            chunk: int) -> torch.Tensor:
+    """The kernel at ``chunk`` keys per block, on inputs the wrapper checked
+    (``chip_smoke.py --sweep-decode-chunks`` times other chunk sizes)."""
+    B, Hq, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
     lib = _build.load()
-    G = Hq // Hkv
-    smem = lib.repro_decode_attention_smem(G, hd)
-    if smem > MAX_SMEM:
-        raise ValueError(f"decode_attention: group size {G} at head dim {hd} "
-                         f"needs {smem} B of shared memory (> {MAX_SMEM})")
-    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit = n_splits(B, Hkv, S, hd, n_sms)
+    # the chunks' partial states: acc (n_part, hd) then (m, l) (n_part, 2)
+    n_part = chunk_grid(S, chunk) * B * Hq
     out = torch.empty_like(q)
-    if nsplit > 1:
-        part_acc = torch.empty((nsplit, B * Hkv, G, _hd_bucket(hd)),
-                               dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((nsplit, B * Hkv, G, 2), dtype=torch.float32,
-                              device=q.device)
-        pa, pm = part_acc.data_ptr(), part_ml.data_ptr()
-    else:
-        pa = pm = None
+    part = torch.empty(n_part * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), pa, pm, B, S, Hq, Hkv, hd,
-            int(window), ctypes.c_float(scale), nsplit, _DTYPES[q.dtype],
+            lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+            part.data_ptr() + 4 * n_part * hd, B, S, Hq, Hkv, hd, int(window),
+            ctypes.c_float(scale), chunk, _DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1

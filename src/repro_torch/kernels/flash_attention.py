@@ -4,11 +4,18 @@ The kernel is ``csrc/flash_attention.cu``; it replaces the TPU kernel in the
 reference's ``kernels/flash_attention.py``. For a CUDA tensor this wrapper
 launches it or raises; for a CPU tensor it returns the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`).
+
+The kernel is chosen by dtype: bfloat16 (the serving path) runs on the
+tensor cores (``wgmma``) fed by TMA, which reads q, k and v through the
+tensor maps this wrapper describes (:func:`tma_args`) and so needs
+hd % 8 == 0 and 16-byte aligned inputs; float32 runs on the CUDA cores,
+because tensor-core f32 is TF32 and would miss the 2e-5 f32 tolerance.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -16,6 +23,38 @@ from repro_torch.kernels import _build, ref
 
 MAX_HD = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+Q_ROWS = 64                       # query rows per TMA box: one warpgroup's
+
+
+def block_k(hd: int) -> int:
+    """Keys per K/V tile (and TMA box) of the bf16 kernel at head dim hd. The
+    launch refuses boxes that are not the tile it was compiled for."""
+    return 128 if hd <= 64 else 64
+
+
+def tensor_map_geometry(shape: tuple[int, int, int, int],
+                        rows: int) -> tuple[tuple[int, ...], tuple[int, ...],
+                                            tuple[int, ...]]:
+    """The TMA view of a contiguous bf16 tensor of ``shape`` (B, S, H, hd)
+    read in boxes of ``rows`` rows: dims innermost first (hd, H, S, B), byte
+    strides of dims 1..3, and the box (64 columns, 1 head, rows, 1 batch).
+    TMA wants every stride a multiple of 16 bytes."""
+    B, S, H, hd = shape
+    e = 2
+    return ((hd, H, S, B), (e * hd, e * hd * H, e * hd * H * S),
+            (64, 1, rows, 1))
+
+
+@functools.lru_cache(maxsize=256)
+def tma_args(q_shape: tuple[int, ...],
+             kv_shape: tuple[int, ...]) -> ctypes.Array:
+    """What the bf16 launch encodes its tensor maps from: q's geometry in
+    boxes of Q_ROWS rows, then k's and v's in boxes of block_k(hd) rows, each
+    as dims, strides, box (11 numbers)."""
+    geo = (tensor_map_geometry(q_shape, Q_ROWS),
+           tensor_map_geometry(kv_shape, block_k(q_shape[3])))
+    flat = [x for g in geo for part in g for x in part]
+    return (ctypes.c_ulonglong * len(flat))(*flat)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,14 +86,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if Sq == 0 or Sk == 0 or B == 0:
         raise ValueError("flash_attention: empty input")
+    if q.dtype == torch.bfloat16:
+        if hd % 8:
+            raise ValueError(f"flash_attention: bf16 head dim {hd} is not a "
+                             f"multiple of 8 (TMA needs 16-byte strides)")
+        if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
+            raise ValueError("flash_attention: bf16 q, k, v must start on a "
+                             "16-byte boundary (TMA)")
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    tma = tma_args(tuple(q.shape), tuple(k.shape)) \
+        if q.dtype == torch.bfloat16 else None
     lib = _build.load()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
             Sk, Hq, Hkv, hd, int(causal), int(window), int(q_offset),
-            ctypes.c_float(scale), _DTYPES[q.dtype],
+            ctypes.c_float(scale), _DTYPES[q.dtype], tma,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1

@@ -8,6 +8,8 @@ arrays. Tolerances are the reference kernel tests': 2e-5 in f32, 0.05 in bf16.
 
 Tests marked ``gpu`` hold the hand-written CUDA kernels to the plain versions
 on the card; they decide inside a fixture whether there is one and skip here.
+There bf16 is also held element by element to 4e-3 + 2^-6 * |plain| (as in
+chip_smoke.py), which a skipped key tile or chunk does not meet.
 """
 
 import jax.numpy as jnp
@@ -20,11 +22,16 @@ from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.ops import window_slice as jax_window_slice
 from repro_torch._bridge import to_numpy, to_torch
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.decode_attention import (CHUNK, chunk_grid,
+                                                  decode_attention)
+from repro_torch.kernels.flash_attention import (Q_ROWS, block_k,
+                                                 flash_attention, tma_args,
+                                                 tensor_map_geometry)
 
 TOL = {"float32": 2e-5, "bfloat16": 0.05}
+BF16_ATOL, BF16_RTOL = 4e-3, 2.0 ** -6
 
 FLASH_CASES = [
     # B, Sq, Sk, Hq, Hkv, hd, causal, window, off  (as tests/test_kernels.py)
@@ -46,6 +53,28 @@ DECODE_CASES = [
     (2, 1024, 16, 2, 128, 0),     # long cache, high group count
 ]
 
+# the redesigned kernels' own edges (also in chip_smoke.py)
+FLASH_EDGE = [
+    # B, Sq, Sk, Hq, Hkv, hd, causal, window, off
+    (1, 130, 130, 2, 2, 48, True, 0, 0),       # G 1, ragged 130, hd 48
+    (2, 70, 200, 4, 2, 80, True, 0, 130),      # q_offset > 0, Sk > Sq, G 2
+    (1, 77, 77, 8, 2, 168, True, 0, 0),        # G 4, gemma3-27b head dim
+    (1, 200, 200, 4, 2, 72, True, 50, 0),      # window edge inside a tile
+    (1, 150, 150, 2, 1, 240, True, 100, 0),    # hd 240, window inside a tile
+    (2, 33, 97, 4, 4, 64, False, 0, 0),        # bidirectional, ragged, G 1
+    (1, 64, 300, 8, 2, 64, True, 37, 236),     # offset and window, G 4
+    (1, 140, 140, 4, 2, 176, True, 0, 0),      # a block's 2nd warpgroup idle
+]
+
+DECODE_EDGE = [
+    # B, S, Hq, Hkv, hd, window, lengths
+    (4, 600, 8, 2, 64, 0, [1, CHUNK, CHUNK + 1, 5000]),
+    (2, 1024, 4, 2, 64, 100, [250, 650]),      # windows cross chunk edges
+    (2, 2048, 4, 2, 240, 50, [100, 1900]),     # every chunk empty but one
+    (3, 700, 16, 2, 128, 0, [700, 1, 513]),    # G 8
+    (2, 512, 24, 2, 64, 0, [512, 130]),        # G 12: two head slices
+]
+
 
 def pair(rng, shape, dtype):
     """One input as (jax array, torch tensor) holding identical values."""
@@ -58,6 +87,16 @@ def err(t: torch.Tensor, j) -> float:
                         - np.asarray(j, np.float32)).max())
 
 
+def assert_close_on_card(out: torch.Tensor, want: torch.Tensor, dtype: str):
+    """A kernel against its plain version: max error under TOL, and for bf16
+    every element within BF16_ATOL + BF16_RTOL * |plain| as well."""
+    diff = (out.float() - want.float()).abs()
+    assert float(diff.max()) < TOL[dtype]
+    if dtype == "bfloat16":
+        bound = BF16_ATOL + BF16_RTOL * want.float().abs()
+        assert bool((diff <= bound).all()), float((diff / bound).max())
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -66,8 +105,9 @@ def cuda():
 
 
 # ------------------------------------------------------------------ flash
-@pytest.mark.parametrize("case", FLASH_CASES,
-                         ids=[f"flash{i}" for i in range(len(FLASH_CASES))])
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_EDGE,
+                         ids=[f"flash{i}" for i in range(len(FLASH_CASES))]
+                         + [f"edge{i}" for i in range(len(FLASH_EDGE))])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_plain_matches_reference(case, dtype):
     B, Sq, Sk, Hq, Hkv, hd, causal, win, off = case
@@ -97,6 +137,29 @@ def test_decode_plain_matches_reference(case, dtype):
     lens = rng.integers(1, S + 1, (B,)).astype(np.int32)
     lj, lt = jnp.asarray(lens), torch.from_numpy(lens)
     out = ops.decode_attention_op(qt, kt, vt, lt, window=win)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    assert err(out, jref.decode_attention_ref(qj, kj, vj, lj, window=win)) \
+        < TOL[dtype]
+    want = pallas_decode(qj, kj, vj, lj, window=win, interpret=True,
+                         block_k=128)
+    assert err(out, want) < TOL[dtype]
+
+
+@pytest.mark.parametrize("case", DECODE_EDGE,
+                         ids=[f"edge{i}" for i in range(len(DECODE_EDGE))])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_decode_plain_matches_reference_at_the_kernel_edges(case, dtype):
+    """The card's edge lengths (1, a chunk, a chunk + 1, past S; windows
+    across chunk edges): the reference sees them clamped to S."""
+    B, S, Hq, Hkv, hd, win, lens = case
+    rng = np.random.default_rng([int(x) for x in case[:6]])
+    qj, qt = pair(rng, (B, Hq, hd), dtype)
+    (kj, kt), (vj, vt) = (pair(rng, (B, S, Hkv, hd), dtype),
+                          pair(rng, (B, S, Hkv, hd), dtype))
+    lj = jnp.minimum(jnp.asarray(lens, jnp.int32), S)
+    out = ops.decode_attention_op(qt, kt, vt,
+                                  torch.tensor(lens, dtype=torch.int32),
+                                  window=win)
     assert out.dtype == qt.dtype and out.shape == qt.shape
     assert err(out, jref.decode_attention_ref(qj, kj, vj, lj, window=win)) \
         < TOL[dtype]
@@ -206,8 +269,8 @@ def test_flash_kernel_matches_plain_on_card(cuda, case, dtype):
     out = ops.attention_op(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == n + 1
-    want = ops.attention_op(q, k, v, impl="plain", **kw)
-    assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
+    assert_close_on_card(out, ops.attention_op(q, k, v, impl="plain", **kw),
+                         dtype)
 
 
 @pytest.mark.gpu
@@ -227,5 +290,154 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, dtype):
     out = ops.decode_attention_op(q, kc, vc, lens, window=win)
     torch.cuda.synchronize()
     assert decode_attention.launches == n + 1
-    want = ops.decode_attention_op(q, kc, vc, lens, window=win, impl="plain")
-    assert float((out.float() - want.float()).abs().max()) < TOL[dtype]
+    assert_close_on_card(
+        out, ops.decode_attention_op(q, kc, vc, lens, window=win,
+                                     impl="plain"), dtype)
+
+
+# ------------------------------------------------------------------ shape logic
+@pytest.mark.parametrize("S,chunk,want", [
+    (2048, 256, 8), (2049, 256, 9), (1, 256, 1), (256, 256, 1), (300, 128, 3),
+])
+def test_decode_chunk_grid_is_fixed_by_S(S, chunk, want):
+    assert chunk_grid(S, chunk) == want
+
+
+@pytest.mark.parametrize("shape,rows,want", [
+    ((1, 1024, 32, 64), Q_ROWS,                # granite q
+     ((64, 32, 1024, 1), (128, 4096, 4194304), (64, 1, 64, 1))),
+    ((1, 1024, 8, 64), block_k(64),            # granite k/v
+     ((64, 8, 1024, 1), (128, 1024, 1048576), (64, 1, 128, 1))),
+    ((2, 1536, 8, 240), block_k(240),          # gemma3-12b k/v
+     ((240, 8, 1536, 2), (480, 3840, 5898240), (64, 1, 64, 1))),
+    ((3, 77, 2, 168), block_k(168),            # gemma3-27b head dim
+     ((168, 2, 77, 3), (336, 672, 51744), (64, 1, 64, 1))),
+    ((1, 130, 2, 48), block_k(48),             # hd below one 64-column box
+     ((48, 2, 130, 1), (96, 192, 24960), (64, 1, 128, 1))),
+    ((2, 200, 2, 72), Q_ROWS,                  # hd just past one box
+     ((72, 2, 200, 2), (144, 288, 57600), (64, 1, 64, 1))),
+    ((2, 70, 4, 80), Q_ROWS,
+     ((80, 4, 70, 2), (160, 640, 44800), (64, 1, 64, 1))),
+])
+def test_flash_tensor_map_geometry(shape, rows, want):
+    dims, strides, box = tensor_map_geometry(shape, rows)
+    assert (dims, strides, box) == want
+    assert all(s % 16 == 0 for s in strides)   # what TMA requires
+
+
+@pytest.mark.parametrize("q_shape,kv_shape", [
+    ((1, 1024, 32, 64), (1, 1024, 8, 64)),     # granite-3-2b prefill
+    ((1, 1536, 16, 240), (1, 1536, 8, 240)),   # gemma3-12b prefill
+    ((2, 64, 8, 64), (2, 192, 2, 64)),         # suffix prefill: Sk > Sq
+])
+def test_flash_launch_gets_q_then_kv_geometry(q_shape, kv_shape):
+    """The 2 x 11 numbers a bf16 launch encodes its tensor maps from: q in
+    boxes of one warpgroup's rows, k and v in boxes of the key tile."""
+    got = tuple(tma_args(q_shape, kv_shape))
+    hd = q_shape[3]
+    flat = [x for geo in (tensor_map_geometry(q_shape, Q_ROWS),
+                          tensor_map_geometry(kv_shape, block_k(hd)))
+            for part in geo for x in part]
+    assert got == tuple(flat) and len(got) == 22
+    assert got[9] == 64 and got[11 + 9] == block_k(hd)
+    assert got[0] == got[11] == hd and got[2] == q_shape[1] \
+        and got[11 + 2] == kv_shape[1]
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_config_head_dims_meet_the_bf16_kernels_load_rules(name):
+    """Every config's attention reaches the bf16 kernels: hd within the
+    kernels' 256, a multiple of 8 (TMA's 16-byte strides, the decode
+    kernel's 16-byte loads), and a chunk grid of at least one block."""
+    cfg = get_config(name)
+    hd = cfg.hd
+    assert 0 < hd <= 256 and hd % 8 == 0
+    q, kv = (1, 4096, cfg.n_heads, hd), (1, 4096, cfg.n_kv_heads, hd)
+    args = tma_args(q, kv)
+    assert all(args[i] % 16 == 0 for i in (4, 5, 6, 15, 16, 17))
+    assert chunk_grid(4096) == -(-4096 // CHUNK) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_EDGE,
+                         ids=[f"edge{i}" for i in range(len(FLASH_EDGE))])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_kernel_edges_on_card(cuda, case, dtype):
+    B, Sq, Sk, Hq, Hkv, hd, causal, win, off = case
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dt)
+               for s in ((B, Sq, Hq, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)))
+    kw = dict(causal=causal, window=win, q_offset=off)
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_close_on_card(out, ref.flash_attention_ref(q, k, v, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_EDGE,
+                         ids=[f"edge{i}" for i in range(len(DECODE_EDGE))])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_decode_kernel_edges_on_card(cuda, case, dtype):
+    B, S, Hq, Hkv, hd, win, lens = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Hq, hd), generator=g, device=cuda).to(dt)
+    kc, vc = (torch.randn((B, S, Hkv, hd), generator=g, device=cuda).to(dt)
+              for _ in range(2))
+    lt = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = decode_attention(q, kc, vc, lt, window=win)
+    torch.cuda.synchronize()
+    assert_close_on_card(out, ref.decode_attention_ref(q, kc, vc, lt,
+                                                       window=win), dtype)
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_what_their_loads_cannot_take(cuda):
+    bf = torch.bfloat16
+    q = torch.randn((1, 64, 2, 36), device=cuda).to(bf)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        decode_attention(q[:, 0], q, q,
+                         torch.ones((1,), dtype=torch.int32, device=cuda))
+    flat = torch.randn(1 + 64 * 2 * 64, device=cuda).to(bf)
+    odd = flat[1:].view(1, 64, 2, 64)               # 2 bytes past a boundary
+    assert odd.is_contiguous() and odd.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(odd, odd, odd)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention(odd[:, 0], odd, odd,
+                         torch.ones((1,), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 240])
+def test_flash_launch_refuses_a_box_that_is_not_its_tile(cuda, hd):
+    """block_k(hd) is the tile the kernel was compiled with: the launch takes
+    it, and refuses a K/V box of any other height."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    bf = torch.bfloat16
+    q = torch.randn((1, 128, 2, hd), device=cuda).to(bf)
+    k = torch.randn((1, 192, 2, hd), device=cuda).to(bf)
+    lib = _build.load()
+
+    def launch(rows):
+        args = list(tma_args(tuple(q.shape), tuple(k.shape)))
+        args[11 + 9] = rows
+        out = torch.empty_like(q)
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(), 1, 128,
+            192, 2, 2, hd, 1, 0, 0, ctypes.c_float(hd ** -0.5), 1,
+            (ctypes.c_ulonglong * 22)(*args),
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return err, out
+
+    err, out = launch(block_k(hd))
+    assert err == 0
+    assert_close_on_card(out, ref.flash_attention_ref(q, k, k), "bfloat16")
+    assert launch(2 * block_k(hd))[0] != 0
+    assert launch(block_k(hd) // 2)[0] != 0
