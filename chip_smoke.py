@@ -12,7 +12,7 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    and count);
 2. prints the build (seconds, and ptxas' registers / spills per kernel);
 3. holds each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the serving path's shapes, the reference's edge shapes and
+   and bf16, at every serving path's shapes, the reference's edge shapes and
    the redesigned kernels' own edges (ragged tiles, offsets, windows that cut
    a tile or a chunk), and times kernel, plain version and PyTorch library
    calls (``scaled_dot_product_attention``, a yardstick only) on the device:
@@ -28,7 +28,19 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
 5. serves gemma3-12b at full width with its depth cut to 6 layers (one 5:1
    local:global group) so the run stays inside its time limit: one engine, a
    1536-token prompt (longer than the 1024 window), 16 decode steps;
-6. prints the kernels' JSON line, the card line again, and last
+6. serves whisper-medium at its published width and depth (2 engines x 8
+   slots, max_seq 448, seeded frames), llama-3.2-vision-90b at published
+   width cut to 10 layers (2 groups of 4 self + 1 cross, gates opened,
+   seeded patches) and deepseek-v3-671b at published width cut to 4 layers
+   (3 dense + 1 MoE of 256 experts): per phase TTFT, decode step wall and
+   device time, the kernels' launches per prefill and per step (checked
+   against the path), KV bytes per session, peak memory, and a parked
+   session resumed token for token against a never-parked control; each
+   phase's models, engines and stores are freed before the next;
+7. drives a short seeded trace through the port's TraceDriver over two
+   granite-3-2b engines (real prefills, modeled service times) and prints
+   its TraceReport beside the measured prefill seconds;
+8. prints the kernels' JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 With ``--sweep-decode-chunks`` it only times the decode kernel at the path's
@@ -42,6 +54,7 @@ without the repository around it, it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -155,11 +168,37 @@ DECODE_CASES = [
     (1, 64, 2, 1, 32, 16),
     (2, 1024, 16, 2, 128, 0),
 ]
-# the serving path's shapes: (name, case)
-FLASH_PATH = [("granite-3-2b", (1, 1024, 1024, 32, 8, 64, True, 0, 0)),
-              ("gemma3-12b local", (1, 1536, 1536, 16, 8, 240, True, 1024, 0))]
-DECODE_PATH = [("granite-3-2b", (8, 2048, 32, 8, 64, 0)),
-               ("gemma3-12b local", (8, 2048, 16, 8, 240, 1024))]
+# the serving paths' shapes: (name, case); the first of each list is the
+# main path's (its times go in the kernels' JSON line)
+FLASH_PATH = [
+    ("granite-3-2b", (1, 1024, 1024, 32, 8, 64, True, 0, 0)),
+    ("gemma3-12b local", (1, 1536, 1536, 16, 8, 240, True, 1024, 0)),
+    # whisper-medium: encoder self attention over the 1500 frames, and the
+    # decoder's cross attention of a 256-token prompt (MHA, non-causal)
+    ("whisper encoder", (1, 1500, 1500, 16, 16, 64, False, 0, 0)),
+    ("whisper cross", (1, 256, 1500, 16, 16, 64, False, 0, 0)),
+    # llama-3.2-vision-90b: self and cross attention of a 512-token prompt
+    # over the 1601 patches
+    ("vision self", (1, 512, 512, 64, 8, 128, True, 0, 0)),
+    ("vision cross", (1, 512, 1601, 64, 8, 128, False, 0, 0)),
+    # deepseek-v3 MLA prefill: q/k 192 columns, v padded from 128 to 192
+    ("deepseek MLA", (1, 1024, 1024, 128, 128, 192, True, 0, 0)),
+]
+# V's own width where the path zero-pads V to the q/k head dim: the timed
+# kernel reads the padded V, the bound and the library call the unpadded one
+FLASH_PATH_DV = {"deepseek MLA": 128}
+# (name, case, lengths): "random" = path_lengths(SEED), in 1..S with the
+# first S and the last 1; "full" = S for every row (cross attention reads the
+# whole cache). Each timed shape draws its lengths and tensors from SEED
+# alone, so adding a shape never moves another's inputs.
+DECODE_PATH = [
+    ("granite-3-2b", (8, 2048, 32, 8, 64, 0), "random"),
+    ("gemma3-12b local", (8, 2048, 16, 8, 240, 1024), "random"),
+    ("whisper self", (8, 448, 16, 16, 64, 0), "random"),
+    ("whisper cross", (8, 1500, 16, 16, 64, 0), "full"),
+    ("vision self", (4, 2048, 64, 8, 128, 0), "random"),
+    ("vision cross", (4, 1601, 64, 8, 128, 0), "full"),
+]
 # the redesigned kernels' own edges (tests/test_torch_kernels.py)
 FLASH_EDGE = [
     # B, Sq, Sk, Hq, Hkv, hd, causal, window, off
@@ -171,6 +210,9 @@ FLASH_EDGE = [
     (2, 33, 97, 4, 4, 64, False, 0, 0),
     (1, 64, 300, 8, 2, 64, True, 37, 236),
     (1, 140, 140, 4, 2, 176, True, 0, 0),
+    (1, 40, 150, 4, 4, 64, False, 0, 0),
+    (1, 70, 201, 8, 1, 128, False, 0, 0),
+    (1, 96, 96, 4, 4, 192, True, 0, 0),
 ]
 DECODE_EDGE = [
     # B, S, Hq, Hkv, hd, window, lengths (decode chunk 192 at hd <= 128)
@@ -179,6 +221,7 @@ DECODE_EDGE = [
     (2, 2048, 4, 2, 240, 50, [100, 1900]),
     (3, 700, 16, 2, 128, 0, [700, 1, 513]),
     (2, 512, 24, 2, 64, 0, [512, 130]),
+    (3, 500, 8, 8, 64, 0, [500, 500, 500]),
 ]
 DESIGN = {"flash_attention": "wgmma+tma", "decode_attention": "chunked-v16"}
 CHUNKS_TRIED = (128, 192, 256, 320, 384, 512)   # --sweep-decode-chunks
@@ -208,18 +251,20 @@ def compare(torch, out, want) -> tuple[float, float | None, bool]:
     return err, ratio, ok
 
 
-def flash_work(case, itemsize: int) -> tuple[float, float]:
-    """(operations, bytes) the function needs: 4 * hd per visible (q, k) pair
-    per q-head; q, k, v read once and o written once."""
+def flash_work(case, itemsize: int, dv: int | None = None) -> tuple[float, float]:
+    """(operations, bytes) the function needs: 2 * (hd + dv) per visible
+    (q, k) pair per q-head; q, k, v read once and o written once. ``dv`` is
+    V's and the output's width (default hd)."""
     B, Sq, Sk, Hq, Hkv, hd, causal, window, off = case
+    dv = hd if dv is None else dv
     pairs = 0
     for i in range(Sq):
         qp = off + i
         hi = min(Sk - 1, qp) if causal else Sk - 1
         lo = max(0, qp - window + 1) if window > 0 else 0
         pairs += max(0, hi - lo + 1)
-    ops = 4.0 * B * Hq * hd * pairs
-    nbytes = itemsize * (2 * B * Sq * Hq * hd + 2 * B * Sk * Hkv * hd)
+    ops = 2.0 * B * Hq * (hd + dv) * pairs
+    nbytes = itemsize * (B * Sq * Hq * (hd + dv) + B * Sk * Hkv * (hd + dv))
     return ops, nbytes
 
 
@@ -251,12 +296,10 @@ def kernel_phase(torch, kern) -> dict:
     def mk(shape, dt):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
-    def lens_for(B, S):
-        lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
-                             dtype=torch.int32)
-        lens[0] = S
-        lens[-1] = 1
-        return lens
+    def lens_for(B, S, mode):
+        if mode == "full":
+            return torch.full((B,), S, dtype=torch.int32, device="cuda")
+        return path_lengths(torch, B, S, SEED)
 
     worst = {"flash_attention": 0.0, "decode_attention": 0.0}
     failed = []
@@ -289,12 +332,13 @@ def kernel_phase(torch, kern) -> dict:
             torch.cuda.synchronize()
             check("flash_attention", f"{label} {case}", dt, out,
                   ref.flash_attention_ref(q, k, v, **kw))
-        for label, case in [(f"case{i}", c) for i, c in enumerate(DECODE_CASES)] \
+        for label, case, mode in \
+                [(f"case{i}", c, "random") for i, c in enumerate(DECODE_CASES)] \
                 + DECODE_PATH:
             B, S, Hq, Hkv, hd, window = case
             q = mk((B, Hq, hd), dt)
             kc, vc = mk((B, S, Hkv, hd), dt), mk((B, S, Hkv, hd), dt)
-            lens = lens_for(B, S)
+            lens = lens_for(B, S, mode)
             out = decode(q, kc, vc, lens, window=window)
             torch.cuda.synchronize()
             check("decode_attention", f"{label} {case}", dt, out,
@@ -322,14 +366,19 @@ def kernel_phase(torch, kern) -> dict:
     print("[kernels] times at the serving path's shapes (bf16; CUDA graph of "
           "calls over rotating input sets, replayed between CUDA events)",
           flush=True)
-    rows = {}
+    rows, paths = {}, []
     for name, case in FLASH_PATH:
         B, Sq, Sk, Hq, Hkv, hd, causal, window, off = case
         dt = torch.bfloat16
-        ops, nbytes = flash_work(case, 2)
+        dv = FLASH_PATH_DV.get(name, hd)
+        ops, nbytes = flash_work(case, 2, dv)
         n = max(1, min(8, math.ceil(100e6 / nbytes)))
-        sets = [(mk((B, Sq, Hq, hd), dt), mk((B, Sk, Hkv, hd), dt),
-                 mk((B, Sk, Hkv, hd), dt)) for _ in range(n)]
+        gen.manual_seed(SEED)
+        sets = []                       # (q, k, V as the kernel reads it, V)
+        for _ in range(n):
+            q, k, v = mk((B, Sq, Hq, hd), dt), mk((B, Sk, Hkv, hd), dt), \
+                mk((B, Sk, Hkv, dv), dt)
+            sets.append((q, k, v if dv == hd else F.pad(v, (0, hd - dv)), v))
         kw = dict(causal=causal, window=window, q_offset=off)
         qpos = off + torch.arange(Sq, device="cuda")[:, None]
         kpos = torch.arange(Sk, device="cuda")[None, :]
@@ -340,33 +389,44 @@ def kernel_phase(torch, kern) -> dict:
             mask &= qpos - kpos < window
         nxt = rotating(n)
 
+        # the library call takes V at its own width (SDPA allows dv != hd)
         def lib_mask(s):
-            q, k, v = s
+            q, k, _, v = s
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
         def lib_causal(s):
-            q, k, v = s
+            q, k, _, v = s
             return F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True).transpose(1, 2)
+
+        def lib_full(s):
+            q, k, _, v = s
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                enable_gqa=True).transpose(1, 2)
 
         libs = [("scaled_dot_product_attention(attn_mask, enable_gqa)",
                  lib_mask)]
         if causal and window == 0 and off == 0 and Sq == Sk:
             libs.append(("scaled_dot_product_attention(is_causal, enable_gqa)",
                          lib_causal))
-        q, k, v = sets[0]
+        if not causal and window == 0:
+            libs.append(("scaled_dot_product_attention(enable_gqa)", lib_full))
+        q, k, v, _ = sets[0]
         want = ref.flash_attention_ref(q, k, v, **kw)
         err = check("flash_attention", f"timed {name}", dt, flash(q, k, v, **kw),
                     want)
         need(not failed, f"kernel check failed: {failed}")
-        t_k = time_ms(torch, lambda: flash(*sets[nxt()], **kw), 20)
-        t_p = time_ms(torch, lambda: ref.flash_attention_ref(*sets[nxt()], **kw), 4)
+        t_k = time_ms(torch, lambda: flash(*sets[nxt()][:3], **kw), 20)
+        t_p = time_ms(torch, lambda: ref.flash_attention_ref(*sets[nxt()][:3],
+                                                             **kw), 4)
         lib_times = []
         for call, lib in libs:
-            lib_err = (lib(sets[0]).float() - want.float()).abs().max().item()
+            lib_err = (lib(sets[0]).float()
+                       - want[..., :dv].float()).abs().max().item()
             t_l = time_ms(torch, lambda: lib(sets[nxt()]), 20)
             print(f"  flash_attention  {name:18s} library {call}: {t_l:.4f} ms "
                   f"(err {lib_err:.2e})", flush=True)
@@ -376,17 +436,20 @@ def kernel_phase(torch, kern) -> dict:
         b_ms, b_by = bound_ms(ops, nbytes, "bfloat16")
         print(f"  flash_attention  {name:18s} kernel_ms={t_k:.4f} "
               f"plain_ms={t_p:.4f} library_ms={t_l:.4f} bound_ms={b_ms:.5f} "
-              f"by {b_by} ({ops:.3e} op, {nbytes:.3e} B); kernel at "
-              f"{ops / t_k / 1e9:.1f} TFLOP/s", flush=True)
+              f"by {b_by} ({ops:.3e} op, {nbytes:.3e} B, V {dv} columns); "
+              f"kernel at {ops / t_k / 1e9:.1f} TFLOP/s", flush=True)
         print(f"  flash_attention  {name:18s} host enqueue {h_us:.1f} us per "
               f"wrapper call", flush=True)
-        rows.setdefault("flash_attention", dict(
-            ms=t_k, plain_ms=t_p, library_ms=t_l, library_call=lib_call,
-            bound_ms=b_ms, bound_by=b_by, shape_err=err, host_us=h_us))
-    for name, case in DECODE_PATH:
+        paths.append(dict(kernel="flash_attention", path=name, case=case,
+                          v_cols=dv, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                          library_call=lib_call, bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=err, host_us=h_us))
+        rows.setdefault("flash_attention", dict(paths[-1]))
+    for name, case, mode in DECODE_PATH:
         B, S, Hq, Hkv, hd, window = case
         dt = torch.bfloat16
-        lens = lens_for(B, S)
+        gen.manual_seed(SEED)
+        lens = lens_for(B, S, mode)
         ops, nbytes = decode_work(case, lens.tolist(), 2)
         n = max(1, min(8, math.ceil(100e6 / (4 * B * S * Hkv * hd))))
         sets = [(mk((B, Hq, hd), dt), mk((B, S, Hkv, hd), dt),
@@ -396,9 +459,11 @@ def kernel_phase(torch, kern) -> dict:
         mask = kpos < ln
         if window > 0:
             mask &= (ln - 1 - kpos) < window
-        mask = mask[:, None, None, :]
+        mask = None if mode == "full" else mask[:, None, None, :]
         nxt = rotating(n)
-        lib_call = "scaled_dot_product_attention(attn_mask, enable_gqa)"
+        lib_call = "scaled_dot_product_attention(enable_gqa)" \
+            if mask is None else \
+            "scaled_dot_product_attention(attn_mask, enable_gqa)"
 
         def lib(s):
             q, kc, vc = s
@@ -427,11 +492,14 @@ def kernel_phase(torch, kern) -> dict:
               flush=True)
         print(f"  decode_attention {name:18s} host enqueue {h_us:.1f} us per "
               f"wrapper call", flush=True)
-        rows.setdefault("decode_attention", dict(
-            ms=t_k, plain_ms=t_p, library_ms=t_l, library_call=lib_call,
-            bound_ms=b_ms, bound_by=b_by, shape_err=err, host_us=h_us))
+        paths.append(dict(kernel="decode_attention", path=name, case=case,
+                          lengths=mode, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                          library_call=lib_call, bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=err, host_us=h_us))
+        rows.setdefault("decode_attention", dict(paths[-1]))
     for name in rows:
         rows[name]["max_abs_err"] = worst[name]
+    print("[paths] " + json.dumps({"path_shapes": paths}), flush=True)
     return rows
 
 
@@ -444,7 +512,9 @@ def sweep_decode_chunks(torch, ref) -> None:
     gen.manual_seed(SEED)
     print("[sweep] decode_attention device ms by chunk size (CUDA graph of "
           "calls over rotating input sets)", flush=True)
-    for name, (B, S, Hq, Hkv, hd, window) in DECODE_PATH:
+    for name, (B, S, Hq, Hkv, hd, window), mode in DECODE_PATH:
+        if mode != "random":
+            continue
         n = max(1, min(8, math.ceil(100e6 / (4 * B * S * Hkv * hd))))
         sets = [tuple(torch.randn(s, generator=gen, device="cuda")
                       .to(torch.bfloat16)
@@ -471,17 +541,19 @@ def sweep_decode_chunks(torch, ref) -> None:
 
 # ------------------------------------------------------------------ serve phases
 def check_consistency(torch, M, cfg, model, prompt: list[int], steps: int,
-                      label: str) -> float:
+                      label: str, extra: dict | None = None) -> float:
     """Ties K1 to K2: decode step t's logits (K2 over the prefilled cache)
     must match the last-position logits of a prefill (K1) of the prompt plus
     the t tokens. Compared as log-probabilities; the two paths round bf16 at
     different places (one position's activations vs a whole sequence's
     matmuls), through every layer, so the bound is stated for bf16:
-    CONSISTENCY_TOL on the max |difference| of the top-32 log-probs."""
+    CONSISTENCY_TOL on the max |difference| of the top-32 log-probs.
+    ``extra`` (frames or patches) goes into every prefill's batch."""
     dev = model.device
+    extra = extra or {}
     with torch.no_grad():
         tok = torch.tensor([prompt], device=dev)
-        logits, state = M.prefill(cfg, model, {"tokens": tok},
+        logits, state = M.prefill(cfg, model, {"tokens": tok, **extra},
                                   len(prompt) + steps + 1)
         seq = list(prompt)
         nxt = int(logits[0, -1].argmax())
@@ -491,8 +563,8 @@ def check_consistency(torch, M, cfg, model, prompt: list[int], steps: int,
             step_logits, state = M.decode_step(
                 cfg, model, state, torch.tensor([[nxt]], device=dev))
             full, _ = M.prefill(
-                cfg, model, {"tokens": torch.tensor([seq], device=dev)},
-                len(seq))
+                cfg, model, {"tokens": torch.tensor([seq], device=dev),
+                             **extra}, len(seq))
             a = torch.log_softmax(step_logits[0, -1].float(), -1)
             b = torch.log_softmax(full[0, -1].float(), -1)
             need(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
@@ -508,131 +580,209 @@ def check_consistency(torch, M, cfg, model, prompt: list[int], steps: int,
     return worst
 
 
-def serve_granite(torch, kern) -> dict:
+def seeded_prompts(cfg, lens: list[int]) -> list[list[int]]:
+    """One prompt of each length, tokens from default_rng(SEED)."""
     import numpy as np
-    from repro_torch.configs import get_config
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
+
+
+def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
+                 max_batch: int, max_seq: int, prompts: list[list[int]],
+                 steps: int, flash_per_prefill: int, decode_per_step: int,
+                 kv_bytes: int, park_at: int | None = None,
+                 open_gates: bool = False,
+                 consistency: tuple[int, int, int] | None = None,
+                 live_follow_up: bool = False, check_warm: bool = False,
+                 profile_prompt: list[int] | None = None) -> dict:
+    """Serve ``cfg`` (random weights from SEED) through ServingEngines on
+    one tiered LocStore behind the Router: one session per prompt, each with
+    its own seeded frames or patches, plus a never-parked control of the
+    first; ``steps`` pooled decode steps, with the first session parked,
+    warmed and resumed by a follow-up before step ``park_at`` (default
+    halfway). Checks the kernels' launch counts against what the path
+    implies (``flash_per_prefill`` per prefill, ``decode_per_step`` per
+    pooled step: 0 where the path has no such kernel), the resumed session
+    against its control token for token, every session's tokens, and the
+    slot bytes against ``kv_bytes``. Optional checks: ``live_follow_up``
+    (a follow-up of the second session is a live hit, no prefill),
+    ``check_warm`` (Router.warm promotes the parked session) and
+    ``consistency`` = (session, prompt tokens, steps), the decode path
+    against the prefill path; ``profile_prompt`` adds a profiled prefill."""
     from repro_torch.core.config import ServingConfig
     from repro_torch.core.locstore import LocStore, tiered_hierarchy
     from repro_torch.core.prefetch import PrefetchEngine
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Router, ServingEngine
-    cfg = get_config("granite-3-2b")
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab} (padded {M.padded_vocab(cfg)}), "
-          f"{cfg.dtype}, random weights seed {SEED}", flush=True)
+    park_at = steps // 2 if park_at is None else park_at
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = M.init_params(cfg, SEED, device="cuda")
     torch.cuda.synchronize()
     print(f"  params {M.param_count(cfg):,} initialised in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
-    store = LocStore(2, hierarchy=tiered_hierarchy())
-    config = ServingConfig(max_batch=8, max_seq=2048)
+    if open_gates:
+        # the reference initialises the gates at 0 and tanh(0) = 0 would cut
+        # the cross layers out of the path: open them
+        with torch.no_grad():
+            for xp in model.cross_blocks:
+                xp["gate"].fill_(0.5)
+                xp["gate_mlp"].fill_(0.5)
+        print("  cross-attention gates set to 0.5 (tanh 0.462) in every "
+              "group", flush=True)
+    store = LocStore(n_engines, hierarchy=tiered_hierarchy())
+    config = ServingConfig(max_batch=max_batch, max_seq=max_seq)
     engines = [ServingEngine(cfg, model, config=config, node=i, store=store)
-               for i in range(2)]
+               for i in range(n_engines)]
     prefetch = PrefetchEngine(store)
     router = Router(engines, store, prefetch=prefetch)
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
-               for n in rng.integers(128, 1025, size=11)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    key = M._EXTRAS.get(cfg.family)
+    n_extra = cfg.n_frames if key == "frames" else cfg.n_patches
+
+    def extras():
+        if key is None:
+            return None
+        return {key: torch.randn((1, n_extra, cfg.d_model), generator=gen,
+                                 device="cuda").to(torch.bfloat16)}
+
+    ex = [extras() for _ in prompts]
+    if key is not None:
+        print(f"  seeded {key} (1, {n_extra}, {cfg.d_model}) bf16 for every "
+              f"session", flush=True)
 
     flash, decode = kern["flash"], kern["decode"]
     flash.launches = 0
     decode.launches = 0
     # ------------------------------------------------------------ main path
     ttft, placed = [], []
-    for p in prompts:
+    for p, e in zip(prompts, ex):
         t = time.perf_counter()
         eng = router.engine_for()
-        sid = eng.submit(p)
+        sid = eng.submit(p, e)
         ttft.append(time.perf_counter() - t)
         placed.append((eng, sid))
     a_eng, a_sid = placed[0]
-    c_eng = next(e for e in engines if e is not a_eng)
+    c_eng = next((e for e in engines if e is not a_eng), a_eng)
     t = time.perf_counter()
-    c_sid = c_eng.submit(prompts[0])           # the never-parked control
+    c_sid = c_eng.submit(prompts[0], ex[0])     # the never-parked control
     ttft.append(time.perf_counter() - t)
     placed.append((c_eng, c_sid))
-    n_tokens, t_dec = 0, 0.0
-    for _ in range(32):
+    step_wall, n_tokens, d1, d2, warmed = [], 0, None, None, None
+    for i in range(steps):
+        if i == park_at:
+            a_eng.park(a_sid)
+            warmed = router.warm(a_sid)
+            prefetch.drain()
+            d1 = router.follow_up(a_sid, a_eng.sessions[a_sid].tokens)
+            if live_follow_up:
+                b_eng, b_sid = placed[1]
+                d2 = router.follow_up(b_sid, b_eng.sessions[b_sid].tokens)
         t = time.perf_counter()
         for e in engines:
             n_tokens += len(e.step())
-        t_dec += time.perf_counter() - t
-    a_eng.park(a_sid)
-    warmed = router.warm(a_sid)
-    prefetch.drain()
-    d1 = router.follow_up(a_sid, a_eng.sessions[a_sid].tokens)
-    b_eng, b_sid = placed[1]
-    d2 = router.follow_up(b_sid, b_eng.sessions[b_sid].tokens)
-    for _ in range(8):
-        t = time.perf_counter()
-        for e in engines:
-            n_tokens += len(e.step())
-        t_dec += time.perf_counter() - t
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        step_wall.append(time.perf_counter() - t)
     k1, k2 = flash.launches, decode.launches
     # ------------------------------------------------------------ checks
     prefills = sum(e.prefills for e in engines)
-    steps = sum(e.steps for e in engines)
-    print(f"  launches: flash_attention {k1} (40 x {prefills} prefills = "
-          f"{40 * prefills}), decode_attention {k2} (40 x {steps} decode "
-          f"steps = {40 * steps})", flush=True)
-    need(k1 > 0 and k2 > 0, "a kernel of the path was never launched")
-    need(k1 == cfg.n_layers * prefills, "flash launches != 40 x prefills")
-    need(k2 == cfg.n_layers * steps, "decode launches != 40 x decode steps")
-    need(d1.kind == "hit_parked" and d1.resumed and not d1.prefilled,
-         f"park/resume follow-up went {d1}")
-    need(d2.kind == "hit_live" and not d2.prefilled,
-         f"live follow-up went {d2}")
-    need(warmed, "Router.warm did not promote the parked session")
+    n_steps = sum(e.steps for e in engines)
+    print(f"  launches: flash_attention {k1} ({flash_per_prefill} x "
+          f"{prefills} prefills = {flash_per_prefill * prefills}), "
+          f"decode_attention {k2} ({decode_per_step} x {n_steps} decode steps "
+          f"= {decode_per_step * n_steps})", flush=True)
+    need(k1 > 0 and (k2 > 0 or decode_per_step == 0),
+         f"{label}: a kernel of the path was never launched")
+    need(k1 == flash_per_prefill * prefills,
+         f"{label}: flash launches {k1} != {flash_per_prefill} x {prefills}")
+    need(k2 == decode_per_step * n_steps,
+         f"{label}: decode launches {k2} != {decode_per_step} x {n_steps}")
+    need(d1 is not None and d1.kind == "hit_parked" and d1.resumed
+         and not d1.prefilled, f"{label}: park/resume follow-up went {d1}")
+    if live_follow_up:
+        need(d2.kind == "hit_live" and not d2.prefilled,
+             f"{label}: live follow-up went {d2}")
+    if check_warm:
+        need(warmed, f"{label}: Router.warm did not promote the parked "
+             f"session")
     a_tok = a_eng.sessions[a_sid].tokens
     c_tok = c_eng.sessions[c_sid].tokens
-    print(f"  park/resume: parked session {len(a_tok)} tokens, last 8 "
-          f"{a_tok[-8:]}; control last 8 {c_tok[-8:]}", flush=True)
-    need(a_tok == c_tok, "resumed session diverged from its never-parked "
-         "control")
-    for e, s in placed:
-        toks = e.sessions[s].tokens
-        need(all(0 <= x < cfg.vocab for x in toks),
-             f"session {s}: token outside the vocab")
-    peak = torch.cuda.max_memory_allocated()
+    print(f"  park/resume: resumed session {len(a_tok)} tokens, last 6 "
+          f"{a_tok[-6:]}; control last 6 {c_tok[-6:]}", flush=True)
+    need(a_tok == c_tok, f"{label}: resumed session diverged from its "
+         f"never-parked control")
+    for e, sid in placed:
+        toks = e.sessions[sid].tokens
+        need(len(toks) == steps + 1 and all(0 <= x < cfg.vocab for x in toks),
+             f"{label}: session {sid} tokens {toks}")
     kv = engines[0].slot_bytes()
-    # 80 KiB of K and V per token (2 x 40 layers x 8 heads x 64 x 2 B) per
-    # position of max_seq, plus the slot's 4-byte int32 position
-    need(kv == 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * 2048 + 4,
-         f"slot bytes {kv} != 80 KiB x max_seq + 4")
+    need(kv == kv_bytes, f"{label}: slot bytes {kv} != {kv_bytes}")
     ttft_sorted = sorted(ttft)
-    res = {
-        "prefill_seconds": [e.prefill_seconds for e in engines],
-        "ttft_s_p50": ttft_sorted[len(ttft) // 2], "ttft_s_max": ttft_sorted[-1],
-        "prompt_tokens": sum(len(p) for p in prompts) + len(prompts[0]),
-        "decode_tokens": n_tokens, "decode_seconds": t_dec,
-        "decode_tokens_per_s": n_tokens / t_dec,
-        "kv_bytes_per_session": kv, "peak_memory_bytes": peak,
-        "router": {k: getattr(router, k) for k in (
-            "locality_hits", "locality_misses", "locality_evictions",
-            "migrations", "warmups")},
-        "engines": [{"prefills": e.prefills, "steps": e.steps,
-                     "parks": e.parks, "resumes": e.resumes} for e in engines],
-        "launches": {"flash_attention": k1, "decode_attention": k2},
-    }
+    t_dec = sum(step_wall)
+    res = {"ttft_s_p50": ttft_sorted[len(ttft) // 2],
+           "ttft_s_max": ttft_sorted[-1],
+           "prefill_seconds": [e.prefill_seconds for e in engines],
+           "prompt_tokens": sum(len(p) for p in prompts) + len(prompts[0]),
+           "decode_steps": n_steps,
+           "decode_step_wall_ms": 1e3 * sorted(step_wall)[len(step_wall) // 2]
+           / n_engines,
+           "decode_tokens": n_tokens, "decode_seconds": t_dec,
+           "decode_tokens_per_s": n_tokens / t_dec,
+           "kv_bytes_per_session": kv,
+           "router": {k: getattr(router, k) for k in (
+               "locality_hits", "locality_misses", "locality_evictions",
+               "migrations", "warmups")},
+           "engines": [{"prefills": e.prefills, "steps": e.steps,
+                        "parks": e.parks, "resumes": e.resumes}
+                       for e in engines],
+           "launches": {"flash_attention": k1, "decode_attention": k2},
+           "launches_per_prefill": {"flash_attention": k1 / prefills,
+                                    "decode_attention": 0},
+           "launches_per_step": {"flash_attention": 0,
+                                 "decode_attention": k2 / n_steps},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     print("  " + json.dumps(res), flush=True)
     prefetch.shutdown()
-    # consistency of K1 and K2 (after the counts were read)
-    res["consistency"] = check_consistency(torch, M, cfg, model,
-                                           prompts[1][:256], 4, cfg.name)
-    # where the time goes (after every count and check above was read)
-    res["profile_decode"] = profile(torch, "one pooled decode step (B=8)",
-                                    lambda: engines[1].step(), 2)
-    res["profile_prefill"] = profile(
-        torch, "one 1024-token prefill", lambda: engines[0].finish(
-            engines[0].submit(rng.integers(0, cfg.vocab, size=1024).tolist())),
-        1)
-    del engines, router, store, model
-    torch.cuda.empty_cache()
+    # where the time goes, and K1/K2 consistency (after every count was read)
+    res["profile_decode"] = profile(
+        torch, f"one pooled decode step (B={max_batch})",
+        lambda: engines[-1].step(), 2)
+    if profile_prompt is not None:
+        res["profile_prefill"] = profile(
+            torch, f"one {len(profile_prompt)}-token prefill",
+            lambda: engines[0].finish(engines[0].submit(profile_prompt)), 1)
+    if consistency is not None:
+        i, n, k = consistency
+        res["consistency"] = check_consistency(
+            torch, M, cfg, model, prompts[i][:n], k, label, ex[i])
+    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"  peak memory {res['peak_memory_bytes'] / 2**30:.2f} GiB",
+          flush=True)
     return res
+
+
+def serve_granite(torch, kern) -> dict:
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("granite-3-2b")
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab} (padded {M.padded_vocab(cfg)}), "
+          f"{cfg.dtype}, random weights seed {SEED}", flush=True)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
+               for n in rng.integers(128, 1025, size=11)]
+    # 80 KiB of K and V per token (2 x 40 layers x 8 heads x 64 x 2 B) per
+    # position of max_seq, plus the slot's 4-byte int32 position
+    return serve_family(
+        torch, kern, cfg, label=cfg.name, n_engines=2, max_batch=8,
+        max_seq=2048, prompts=prompts, steps=40, park_at=32,
+        flash_per_prefill=cfg.n_layers, decode_per_step=cfg.n_layers,
+        kv_bytes=2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * 2048 + 4,
+        consistency=(1, 256, 4), live_follow_up=True, check_warm=True,
+        profile_prompt=rng.integers(0, cfg.vocab, size=1024).tolist())
 
 
 def profile(torch, what: str, fn, reps: int) -> dict:
@@ -656,12 +806,18 @@ def profile(torch, what: str, fn, reps: int) -> dict:
             fn()
         torch.cuda.synchronize()
     prof_wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count)
-            for e in prof.key_averages()]
-    dev = [(k, t / 1e3 / reps, n / reps) for k, t, n in rows if t > 0]
+    # device events only (kernels, copies): an aten op's self device time
+    # is that of the kernels it launched, which are listed as well
+    from torch.autograd import DeviceType
+    averages = prof.key_averages()
+    rows = [(e.key, e.count) for e in averages]
+    dev = [(e.key, e.self_device_time_total / 1e3 / reps, e.count / reps)
+           for e in averages
+           if getattr(e, "device_type", DeviceType.CPU) != DeviceType.CPU
+           and e.self_device_time_total > 0]
     dev.sort(key=lambda r: -r[1])
     busy_ms = sum(t for _, t, _ in dev)
-    launches = sum(c for k, _, c in rows
+    launches = sum(c for k, c in rows
                    if k in ("cudaLaunchKernel", "cuLaunchKernel",
                             "cudaLaunchKernelExC", "cuLaunchKernelEx")) / reps
     out = {"device_busy_ms": busy_ms, "wall_ms": wall,
@@ -730,6 +886,150 @@ def serve_gemma(torch, kern) -> dict:
                                            4, f"{full.name} (6 layers)")
     del eng, store, model
     torch.cuda.empty_cache()
+    return res
+
+
+def free_cuda(torch) -> None:
+    """Return a finished phase's memory to the card before the next one
+    (called once the phase's function has returned and dropped its
+    models, engines and stores)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def serve_whisper(torch, kern) -> dict:
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-medium")
+    L, E, kvw = cfg.n_layers, cfg.encoder_layers, cfg.n_kv_heads * cfg.hd
+    print(f"[serve] {cfg.name} at published width and depth ({E} encoder + "
+          f"{L} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"vocab {cfg.vocab}, {cfg.n_frames} frames), max_seq 448 (its text "
+          f"context), {cfg.dtype}", flush=True)
+    lens = [256, 200, 160, 128, 96, 64, 48, 32, 240, 180, 120]
+    return serve_family(
+        torch, kern, cfg, label=cfg.name, n_engines=2, max_batch=8,
+        max_seq=448, prompts=seeded_prompts(cfg, lens), steps=16,
+        flash_per_prefill=E + 2 * L, decode_per_step=2 * L,
+        kv_bytes=2 * L * (448 + cfg.n_frames) * kvw * 2 + 4,
+        consistency=(0, 128, 3))
+
+
+def serve_vision(torch, kern) -> dict:
+    from repro_torch.configs import get_config
+    full = get_config("llama-3.2-vision-90b")
+    # depth cut to 2 groups of (4 self + 1 cross): G > 1, inside the limit
+    cfg = dataclasses.replace(full, n_layers=10)
+    G, kvw = cfg.n_layers // cfg.cross_every, cfg.n_kv_heads * cfg.hd
+    print(f"[serve] {full.name} at published width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, "
+          f"{cfg.n_patches} patches), depth cut {full.n_layers} -> "
+          f"{cfg.n_layers} layers ({G} groups of 4 self + 1 cross), "
+          f"{cfg.dtype}", flush=True)
+    return serve_family(
+        torch, kern, cfg, label=f"{full.name} (10 layers)", n_engines=1,
+        max_batch=4, max_seq=2048,
+        prompts=seeded_prompts(cfg, [512, 384, 200]), steps=8,
+        flash_per_prefill=cfg.n_layers, decode_per_step=cfg.n_layers,
+        kv_bytes=2 * (G * 4 * 2048 + G * cfg.n_patches) * kvw * 2 + 4,
+        open_gates=True, consistency=(0, 256, 3))
+
+
+def serve_deepseek(torch, kern) -> dict:
+    from repro_torch.configs import get_config
+    full = get_config("deepseek-v3-671b")
+    # depth cut to the 3 dense layers and 1 MoE layer (256 experts, 22.5 GB)
+    cfg = dataclasses.replace(full, n_layers=4)
+    m = cfg.mla
+    print(f"[serve] {full.name} at published width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, MLA ranks {m.q_lora_rank}/{m.kv_lora_rank}, "
+          f"{cfg.n_experts} experts top-{cfg.experts_per_token}, d_ff "
+          f"{cfg.d_ff}/{cfg.moe_d_ff}), depth cut {full.n_layers} -> "
+          f"{cfg.n_layers} layers ({cfg.first_dense_layers} dense + 1 MoE), "
+          f"{cfg.dtype}; MLA decode and the experts are torch matmuls",
+          flush=True)
+    # no decode-vs-prefill consistency here: prefill drops tokens at the
+    # experts' capacity (counted over the whole prompt) and decode does not
+    return serve_family(
+        torch, kern, cfg, label=f"{full.name} (4 layers)", n_engines=1,
+        max_batch=4, max_seq=2048,
+        prompts=seeded_prompts(cfg, [1024, 300, 64]), steps=8,
+        flash_per_prefill=cfg.n_layers, decode_per_step=0,
+        kv_bytes=cfg.n_layers * 2048 * m.cache_dim * 2 + 4)
+
+
+def trace_granite(torch, kern) -> dict:
+    """A short seeded trace through the port's TraceDriver over two granite
+    engines with the torch backend: every admission and migration is a real
+    prefill on the card (40 flash launches each), service times stay the
+    CostModel's. Prints the TraceReport and the measured prefill seconds
+    beside the modeled ones."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ServingConfig
+    from repro_torch.core.locstore import LocStore, StorageHierarchy, TierSpec
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import (Router, ServingEngine,
+                                          TorchComputeBackend)
+    from repro_torch.serve.traffic import (CostModel, TraceConfig, TraceDriver,
+                                           generate_trace)
+    cfg = get_config("granite-3-2b")
+    max_seq, max_batch = 1024, 4
+    tcfg = TraceConfig(n_sessions=24, followups_per_session=1.5,
+                       req_rate=40.0, arrival="bursty", max_prompt=384,
+                       max_output=128, seed=SEED)
+    trace = generate_trace(tcfg)
+    print(f"[trace] {cfg.name} full width, 2 engines x {max_batch} slots, "
+          f"max_seq {max_seq}: {len(trace)} requests over "
+          f"{tcfg.n_sessions} sessions (bursty, seed {SEED}, prompts <= "
+          f"{tcfg.max_prompt}, outputs <= {tcfg.max_output}); histories are "
+          f"capped at max_seq", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, SEED, device="cuda")
+    config = ServingConfig(max_batch=max_batch, max_seq=max_seq)
+    kv = TorchComputeBackend(cfg, max_seq).slot_nbytes()
+    # HBM holds the live slots, the burst buffer 6 parked sessions a node
+    hier = StorageHierarchy(
+        [TierSpec("hbm", max_batch * kv, 3.35e12), TierSpec("bb", 6 * kv, 8e9)],
+        remote=TierSpec("remote", float("inf"), 2e9))
+    store = LocStore(2, hierarchy=hier, write_policy="back")
+    engines = [ServingEngine(cfg, model, config=config, node=i, store=store)
+               for i in range(2)]
+    router = Router(engines, store)
+    cost = CostModel()
+    flash = kern["flash"]
+    flash.launches = 0
+    t0 = time.perf_counter()
+    rep = TraceDriver(router, trace, cost=cost, warm=True,
+                      max_history=max_seq).run()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    k1 = flash.launches
+    s = rep.summary()
+    prefills = sum(e.prefills for e in engines)
+    print(f"  report: " + json.dumps(s), flush=True)
+    print(f"  {prefills} real prefills (new {s['new_sessions']:.0f} + lost "
+          f"{s['lost_reprefills']:.0f} + migrations {s['migrations']:.0f}), "
+          f"{s['resumes']:.0f} resumes, {sum(e.parks for e in engines)} "
+          f"parks; flash_attention launches {k1} (40 x {prefills}); driver "
+          f"wall {wall:.2f}s", flush=True)
+    need(k1 > 0 and k1 == cfg.n_layers * prefills,
+         f"trace: flash launches {k1} != 40 x {prefills}")
+    need(prefills == s["new_sessions"] + s["lost_reprefills"]
+         + s["migrations"], "trace: prefills do not match the report")
+    need(s["requests"] == len(trace) and s["engine_full_errors"] == 0,
+         f"trace: {s['requests']} requests, "
+         f"{s['engine_full_errors']} engine-full errors")
+    mean_prompt = float(np.mean([r.prompt_len for r in trace]))
+    measured = [e.prefill_seconds for e in engines]
+    print(f"  prefill seconds: measured (EMA per engine) {measured}; "
+          f"CostModel at the mean prompt ({mean_prompt:.0f} tokens) "
+          f"{cost.prefill_seconds(int(mean_prompt)):.4f}", flush=True)
+    res = {"report": s, "prefills": prefills, "launches": k1,
+           "prefill_seconds_measured": measured,
+           "prefill_seconds_model": cost.prefill_seconds(int(mean_prompt)),
+           "driver_wall_s": wall,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     return res
 
 
@@ -814,11 +1114,30 @@ def main(argv: list[str]) -> int:
     print(f"[kernels] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     granite = serve_granite(torch, kern)
+    free_cuda(torch)
     print(f"[serve] granite phase done in {time.perf_counter() - t0:.1f}s",
           flush=True)
     t0 = time.perf_counter()
-    serve_gemma(torch, kern)
+    gemma = serve_gemma(torch, kern)
+    free_cuda(torch)
     print(f"[serve] gemma phase done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    by_path = {"granite-3-2b": granite["launches"],
+               "gemma3-12b": gemma["launches"]}
+    for name, phase in (("whisper-medium", serve_whisper),
+                        ("llama-3.2-vision-90b", serve_vision),
+                        ("deepseek-v3-671b", serve_deepseek)):
+        t0 = time.perf_counter()
+        by_path[name] = phase(torch, kern)["launches"]
+        free_cuda(torch)
+        print(f"[serve] {name} phase done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    t0 = time.perf_counter()
+    trace = trace_granite(torch, kern)
+    free_cuda(torch)
+    by_path["trace granite-3-2b"] = {"flash_attention": trace["launches"],
+                                     "decode_attention": 0}
+    print(f"[trace] phase done in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
     src_of = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -836,7 +1155,9 @@ def main(argv: list[str]) -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "library_call": r["library_call"],
-                        "design": DESIGN[name], "host_us": r["host_us"]})
+                        "design": DESIGN[name], "host_us": r["host_us"],
+                        "launches_by_path": {k: v[name]
+                                             for k, v in by_path.items()}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import DenseLM
+from repro_torch.models.model import _vlm_layout, build_model
 
 __all__ = ["to_torch", "to_numpy", "from_reference", "state_from_reference",
            "state_to_numpy"]
@@ -52,22 +52,43 @@ def _tree(fn, x: Any) -> Any:
     return fn(x)
 
 
+def _unstack(tree: Any, n: int) -> list:
+    """A pytree whose leaves are stacked ``(n, ...)`` as n per-layer trees."""
+    return [_tree(lambda t, i=i: t[i].contiguous(), tree) for i in range(n)]
+
+
 def from_reference(cfg: ModelConfig, np_params: dict,
-                   device: str | torch.device | None = None) -> DenseLM:
-    """The reference's dense/localglobal param pytree as the port's model:
-    the stacked ``(L, ...)`` leaves of ``params["blocks"]`` are split into
-    one module per layer."""
+                   device: str | torch.device | None = None):
+    """The reference's param pytree as the port's model for ``cfg.family``:
+    the stacked leaves of its layer scans (``blocks``; ``enc_blocks`` /
+    ``dec_blocks``; ``self_groups`` (G, S_per, ...) / ``cross_blocks``;
+    ``dense_blocks`` / ``moe_blocks``) are split into one module per layer."""
     dev = resolve_device(device)
-    conv = _tree(lambda a: to_torch(a, dev), np_params)
-    stacked = conv["blocks"]
-    blocks = [_tree(lambda t, i=i: t[i].contiguous(), stacked)
-              for i in range(cfg.n_layers)]
-    return DenseLM(cfg, conv["embed"], blocks, conv["final_norm"])
+    tree = _tree(lambda a: to_torch(a, dev), np_params)
+    L = cfg.n_layers
+    if cfg.family == "encdec":
+        tree["enc_blocks"] = _unstack(tree["enc_blocks"], cfg.encoder_layers)
+        tree["dec_blocks"] = _unstack(tree["dec_blocks"], L)
+    elif cfg.family == "vlm":
+        G, S_per = _vlm_layout(cfg)
+        tree["self_groups"] = [_unstack(g, S_per)
+                               for g in _unstack(tree["self_groups"], G)]
+        tree["cross_blocks"] = _unstack(tree["cross_blocks"], G)
+    elif cfg.family == "moe":
+        if "dense_blocks" in tree:
+            tree["dense_blocks"] = _unstack(tree["dense_blocks"],
+                                            cfg.first_dense_layers)
+        tree["moe_blocks"] = _unstack(tree["moe_blocks"],
+                                      L - cfg.first_dense_layers)
+    else:
+        tree["blocks"] = _unstack(tree["blocks"], L)
+    return build_model(cfg, tree)
 
 
 def state_from_reference(np_state: dict,
                          device: str | torch.device | None = None) -> dict:
-    """A reference decode state (numpy leaves) as the port's decode state."""
+    """A reference decode state (numpy leaves) as the port's decode state —
+    any family's: its dicts and the moe caches' (c1, c2) tuples are kept."""
     dev = resolve_device(device)
     return _tree(lambda a: to_torch(a, dev), np_state)
 

@@ -7,12 +7,17 @@ model behind the Router, sessions pinned in the location service, follow-up
 requests routed to the engine holding the KV cache. Runs on ``--device cuda``
 by default (and fails without a card); ``--device cpu`` runs the plain
 versions. ``--full`` serves the published configuration instead of
-``smoke()``, with random weights from seed 0.
+``smoke()``, with random weights from seed 0; ``--layers N`` cuts its depth
+and keeps its width (deepseek-v3 and llama-3.2-vision do not fit one card
+whole). The encdec and vlm families get seeded frames or patches with every
+prompt (their frontends are stubbed, as in the reference). Families not
+ported yet (hybrid, rwkv) raise.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -33,10 +38,17 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true",
                     help="the published config (random weights, seed 0)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: keep it)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
-    max_seq = 2048 if args.full else 96
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    # whisper's text context is 448 tokens
+    max_seq = (448 if cfg.family == "encdec" else 2048) if args.full else 96
+    extra = {"encdec": ("frames", cfg.n_frames),
+             "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
     params = init_params(cfg, 0, device=args.device)
     store = LocStore(args.engines)
     engines = [ServingEngine(cfg, params, max_batch=args.max_batch,
@@ -50,8 +62,10 @@ def main(argv: list[str] | None = None) -> None:
     sessions = []
     for i in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=8).tolist()
+        extras = None if extra is None else {extra[0]: rng.normal(
+            size=(1, extra[1], cfg.d_model)).astype(np.float32)}
         eng = router.engine_for()
-        sid = eng.submit(prompt)
+        sid = eng.submit(prompt, extras)
         sessions.append((eng, sid))
         print(f"req {i}: engine {eng.node} slot session {sid}")
     # decode everything to completion, round-robin across engines

@@ -1,14 +1,15 @@
-"""Model primitives of the dense GQA decoder (granite / gemma3 families).
+"""Model primitives shared by the ported families.
 
 Plain functions on tensors, one per reference primitive in
 ``repro.models.layers``, with the same shapes and dtype policy: params and
 activations in ``cfg.dtype``, softmax/norm statistics in f32. Sharding hints
-are not part of this slice (the reference's ``hint`` is a no-op without a
+are not part of the port yet (the reference's ``hint`` is a no-op without a
 mesh).
 
 ``attention`` and ``decode_attention`` are the reference's XLA spellings
-(chunked GQA, grouped decode), kept for parity tests; the model itself calls
-the kernel ops in :mod:`repro_torch.kernels.ops`.
+(chunked GQA, grouped decode), kept for parity tests; the model itself, and
+``cross_attention_block`` here, call the kernel ops in
+:mod:`repro_torch.kernels.ops`.
 """
 
 from __future__ import annotations
@@ -18,19 +19,38 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ops import attention_op
+
 NEG_INF = -1e30
+_CHUNK_ELEMS = 1 << 28          # f32 draws above 1 GiB go in slices of dim 0
 
 
 # --------------------------------------------------------------------- init
-def uniform_scale_init(gen: torch.Generator, shape: tuple[int, ...], dtype,
-                       scale: float = 0.02) -> torch.Tensor:
-    """``scale * N(0, 1)`` drawn in f32 from ``gen`` on its device."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (scale * x).to(dtype)
+def uniform_scale_init(gen: torch.Generator | None, shape: tuple[int, ...],
+                       dtype, scale: float = 0.02) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in f32 from ``gen`` on its device. A tensor
+    larger than 1 GiB in f32 (deepseek's stacked experts) is drawn slice by
+    slice along its first dim, so the f32 draw never exists whole.
+    ``gen=None`` gives an empty tensor on the meta device (shapes only)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    n = 1
+    for s in shape:
+        n *= s
+    if n <= _CHUNK_ELEMS or len(shape) < 2:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        return (scale * x).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    step = max(1, _CHUNK_ELEMS * shape[0] // n)
+    for i in range(0, shape[0], step):
+        x = torch.randn((min(step, shape[0] - i),) + tuple(shape[1:]),
+                        generator=gen, dtype=torch.float32, device=gen.device)
+        out[i:i + step] = (scale * x).to(dtype)
+    return out
 
 
-def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,
+def init_linear(gen: torch.Generator | None, d_in: int, d_out: int, dtype,
                 scale: float | None = None) -> torch.Tensor:
     s = scale if scale is not None else 1.0 / d_in ** 0.5
     return uniform_scale_init(gen, (d_in, d_out), dtype, s)
@@ -151,7 +171,7 @@ class AttnDims:
     hd: int
 
 
-def init_attn(gen: torch.Generator, dims: AttnDims, dtype,
+def init_attn(gen: torch.Generator | None, dims: AttnDims, dtype,
               n_layers: int = 1) -> dict[str, torch.Tensor]:
     d, H, Hkv, hd = dims.d_model, dims.n_heads, dims.n_kv_heads, dims.hd
     out_scale = 1.0 / (H * hd) ** 0.5 / (2.0 * n_layers) ** 0.5
@@ -161,8 +181,36 @@ def init_attn(gen: torch.Generator, dims: AttnDims, dtype,
             "wo": init_linear(gen, H * hd, d, dtype, scale=out_scale)}
 
 
+def cross_kv(p, kv_src: torch.Tensor,
+             dims: AttnDims) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention keys and values of an encoder output / patch batch:
+    (B, Sk, Hkv, hd) each, no rope."""
+    B, Sk, _ = kv_src.shape
+    k = (kv_src @ p["wk"]).reshape(B, Sk, dims.n_kv_heads, dims.hd)
+    v = (kv_src @ p["wv"]).reshape(B, Sk, dims.n_kv_heads, dims.hd)
+    return k, v
+
+
+def cross_attend(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 dims: AttnDims) -> torch.Tensor:
+    """The query side of cross attention against precomputed ``k``/``v``:
+    no rope and no mask (the reference's zero positions with
+    ``causal=False``), through the flash-attention op."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, dims.n_heads, dims.hd)
+    o = attention_op(q, k, v, causal=False)
+    return o.reshape(B, S, dims.n_heads * dims.hd) @ p["wo"]
+
+
+def cross_attention_block(p, x: torch.Tensor, kv_src: torch.Tensor,
+                          dims: AttnDims) -> torch.Tensor:
+    """Encoder-decoder / VLM cross attention (no rope, no mask)."""
+    k, v = cross_kv(p, kv_src, dims)
+    return cross_attend(p, x, k, v, dims)
+
+
 # ----------------------------------------------------------------------- MLP
-def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype,
+def init_mlp(gen: torch.Generator | None, d: int, d_ff: int, dtype,
              n_layers: int = 1, gated: bool = True) -> dict[str, torch.Tensor]:
     out_scale = 1.0 / d_ff ** 0.5 / (2.0 * n_layers) ** 0.5
     p = {"w1": init_linear(gen, d, d_ff, dtype),
@@ -205,7 +253,8 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor,
                  pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Write one step (B, 1, Hkv, hd) at per-batch position ``pos`` (B,),
+    """Write one step (B, 1, ...) at per-batch position ``pos`` (B,) into
+    caches (B, S, ...) — GQA's (B, S, Hkv, hd) or MLA's latent (B, S, c) —
     IN PLACE, and return the two caches.
 
     A row whose ``pos`` lies outside ``[0, S)`` is dropped, as JAX drops an
@@ -215,7 +264,7 @@ def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
     """
     B, S = cache_k.shape[:2]
     bidx = torch.arange(B, device=cache_k.device)
-    ok = ((pos >= 0) & (pos < S))[:, None, None]
+    ok = ((pos >= 0) & (pos < S)).reshape((B,) + (1,) * (k.ndim - 2))
     idx = pos.clamp(0, S - 1).long()
     cache_k[bidx, idx] = torch.where(ok, k[:, 0], cache_k[bidx, idx])
     cache_v[bidx, idx] = torch.where(ok, v[:, 0], cache_v[bidx, idx])

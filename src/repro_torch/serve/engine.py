@@ -95,7 +95,9 @@ def _cache_name(sid: int) -> str:
 
 
 def _dtype_name(dtype: Any) -> str:
-    """``torch.bfloat16`` and numpy/JAX ``bfloat16`` both name ``bfloat16``."""
+    """``torch.bfloat16`` and numpy/JAX ``bfloat16`` both name ``bfloat16``;
+    a numpy leaf (the synthetic trace backend's ``int64`` / ``int32``) names
+    itself as the reference names it."""
     return str(dtype).removeprefix("torch.")
 
 
@@ -189,12 +191,29 @@ class TorchComputeBackend:
         device is synchronised on both sides of the timed call."""
         tokens = torch.tensor([prompt], dtype=torch.int64, device=self.device)
         batch = {"tokens": tokens, "labels": tokens}
+        key = M._EXTRAS.get(self.cfg.family)
+        if key is not None:
+            batch[key] = self._extra(key, extras)
         self._sync()
         t0 = time.perf_counter()
         logits, fresh = M.prefill(self.cfg, params, batch, self.max_seq)
         self._sync()
         dt = time.perf_counter() - t0
         return int(torch.argmax(logits[0, -1])), fresh, dt
+
+    def _extra(self, key: str, extras: dict | None) -> torch.Tensor:
+        """The stubbed frontend's input for one prompt, as the reference
+        hands it over: ``extras[key]`` (frames or patches, shape (1, n, d))
+        in bf16 whatever ``cfg.dtype``, or bf16 zeros of (1, n_frames |
+        n_patches, d_model) when the caller gives none."""
+        e = (extras or {}).get(key)
+        if e is None:
+            n = self.cfg.n_frames if key == "frames" else self.cfg.n_patches
+            return torch.zeros((1, n, self.cfg.d_model), dtype=torch.bfloat16,
+                               device=self.device)
+        if not isinstance(e, torch.Tensor):
+            e = torch.from_numpy(np.asarray(e, np.float32))
+        return e.to(device=self.device, dtype=torch.bfloat16)
 
     @torch.no_grad()
     def decode(self, params: Pytree, state: Pytree,

@@ -64,6 +64,9 @@ FLASH_EDGE = [
     (2, 33, 97, 4, 4, 64, False, 0, 0),        # bidirectional, ragged, G 1
     (1, 64, 300, 8, 2, 64, True, 37, 236),     # offset and window, G 4
     (1, 140, 140, 4, 2, 176, True, 0, 0),      # a block's 2nd warpgroup idle
+    (1, 40, 150, 4, 4, 64, False, 0, 0),       # cross attention: tail past Sk
+    (1, 70, 201, 8, 1, 128, False, 0, 0),      # non-causal tail at hd 128, MQA
+    (1, 96, 96, 4, 4, 192, True, 0, 0),        # MLA prefill: hd 192, 256 bucket
 ]
 
 DECODE_EDGE = [
@@ -73,6 +76,7 @@ DECODE_EDGE = [
     (2, 2048, 4, 2, 240, 50, [100, 1900]),     # every chunk empty but one
     (3, 700, 16, 2, 128, 0, [700, 1, 513]),    # G 8
     (2, 512, 24, 2, 64, 0, [512, 130]),        # G 12: two head slices
+    (3, 500, 8, 8, 64, 0, [500, 500, 500]),    # G 1 cross decode: all full
 ]
 
 
