@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                          # the whole check
     python3 chip_smoke.py --sweep-decode-chunks    # decode chunk sizes only
+    python3 chip_smoke.py --probe-consistency      # zamba2 decode vs prefill
 
 Run from the root of a checkout, on a machine with one CUDA card. It imports
 nothing of JAX and nothing of the reference package ``repro``; it builds the
@@ -37,15 +38,22 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    against the path), KV bytes per session, peak memory, and a parked
    session resumed token for token against a never-parked control; each
    phase's models, engines and stores are freed before the next;
-7. drives a short seeded trace through the port's TraceDriver over two
+7. serves the recurrent families at published width and full depth, the
+   same way: zamba2-7b (81 Mamba2 layers, the one shared attention block
+   applied at 13 points: 13 flash launches per prefill, 13 decode launches
+   per step, at head dim 112) and rwkv6-1.6b (no attention: no kernel
+   launch; a session's state is the same 12,976,132 bytes at any length);
+8. drives a short seeded trace through the port's TraceDriver over two
    granite-3-2b engines (real prefills, modeled service times) and prints
    its TraceReport beside the measured prefill seconds;
-8. prints the kernels' JSON line, the card line again, and last
+9. prints the kernels' JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 With ``--sweep-decode-chunks`` it only times the decode kernel at the path's
-shapes at each chunk size of CHUNKS_TRIED (how ``chunk_size`` was chosen) and
-prints no result line.
+shapes at each chunk size of CHUNKS_TRIED (how ``chunk_size`` was chosen);
+with ``--probe-consistency`` it only compares zamba2-7b's decode step with
+its prefill layer by layer (``probe_consistency``). Neither prints a result
+line.
 
 Any failure exits non-zero before the last line. Without a CUDA device, or
 without the repository around it, it exits non-zero at once.
@@ -183,6 +191,8 @@ FLASH_PATH = [
     ("vision cross", (1, 512, 1601, 64, 8, 128, False, 0, 0)),
     # deepseek-v3 MLA prefill: q/k 192 columns, v padded from 128 to 192
     ("deepseek MLA", (1, 1024, 1024, 128, 128, 192, True, 0, 0)),
+    # zamba2-7b's shared attention block: hd 112 (3584 / 32), MHA
+    ("zamba2 shared", (1, 1024, 1024, 32, 32, 112, True, 0, 0)),
 ]
 # V's own width where the path zero-pads V to the q/k head dim: the timed
 # kernel reads the padded V, the bound and the library call the unpadded one
@@ -198,6 +208,7 @@ DECODE_PATH = [
     ("whisper cross", (8, 1500, 16, 16, 64, 0), "full"),
     ("vision self", (4, 2048, 64, 8, 128, 0), "random"),
     ("vision cross", (4, 1601, 64, 8, 128, 0), "full"),
+    ("zamba2 shared", (4, 2048, 32, 32, 112, 0), "random"),
 ]
 # the redesigned kernels' own edges (tests/test_torch_kernels.py)
 FLASH_EDGE = [
@@ -541,14 +552,16 @@ def sweep_decode_chunks(torch, ref) -> None:
 
 # ------------------------------------------------------------------ serve phases
 def check_consistency(torch, M, cfg, model, prompt: list[int], steps: int,
-                      label: str, extra: dict | None = None) -> float:
+                      label: str, extra: dict | None = None,
+                      gate: bool = True) -> float:
     """Ties K1 to K2: decode step t's logits (K2 over the prefilled cache)
     must match the last-position logits of a prefill (K1) of the prompt plus
     the t tokens. Compared as log-probabilities; the two paths round bf16 at
     different places (one position's activations vs a whole sequence's
     matmuls), through every layer, so the bound is stated for bf16:
     CONSISTENCY_TOL on the max |difference| of the top-32 log-probs.
-    ``extra`` (frames or patches) goes into every prefill's batch."""
+    ``extra`` (frames or patches) goes into every prefill's batch. With
+    ``gate=False`` the figure is printed and returned, not checked."""
     dev = model.device
     extra = extra or {}
     with torch.no_grad():
@@ -573,11 +586,99 @@ def check_consistency(torch, M, cfg, model, prompt: list[int], steps: int,
             worst = max(worst, (a[top] - b[top]).abs().max().item())
             nxt = int(step_logits[0, -1].argmax())
     ok = worst <= CONSISTENCY_TOL
-    print(f"  consistency {label}: decode step vs prefill of prompt+t "
-          f"({steps} steps) max |dlogp| over top-32 = {worst:.4f} "
-          f"tol={CONSISTENCY_TOL} {'ok' if ok else 'FAIL'}", flush=True)
-    need(ok, f"{label}: decode/prefill logits disagree by {worst}")
+    verdict = ("ok" if ok else "FAIL") if gate else \
+        f"{'within' if ok else 'over'} tol, reported only"
+    print(f"  consistency {label} {str(model.final_norm.dtype)[6:]}: decode "
+          f"step vs prefill of prompt+t ({steps} steps) max |dlogp| over "
+          f"top-32 = {worst:.4f} tol={CONSISTENCY_TOL} {verdict}", flush=True)
+    if gate:
+        need(ok, f"{label}: decode/prefill logits disagree by {worst}")
     return worst
+
+
+def probe_consistency(torch) -> None:
+    """Where zamba2-7b's decode step and its chunked prefill part: the
+    consistency check's prompt (the first 256 tokens of the serve phase's
+    first prompt) and 3 decode steps, at full width, in bf16 with cuBLAS
+    allowed reduced-precision (bf16) split-K reductions (torch's default),
+    in bf16 without them, and in f32 (weights drawn from the same seed).
+    Prints the worst |dlogp| over the top 32 as check_consistency does, and
+    for the first step the relative difference max|a - b| / max|b| of each
+    layer's normed input at the new position (every Mamba2 layer and each
+    application of the shared block, in order); granite-3-2b's consistency
+    under both bf16 settings is printed beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    rec: list[torch.Tensor] = []
+    orig = (ssm.mamba2_block, ssm.mamba2_step, M._attn_prefill,
+            M._attn_decode)
+
+    def recorded(fn, at):
+        def wrapper(cfg_, p, *args, **kw):
+            rec.append(args[at][0, -1].float())
+            return fn(cfg_, p, *args, **kw)
+        return wrapper
+
+    ssm.mamba2_block = recorded(orig[0], 0)
+    ssm.mamba2_step = recorded(orig[1], 1)
+    M._attn_prefill = recorded(orig[2], 0)
+    M._attn_decode = recorded(orig[3], 0)
+    print("[probe] decode step vs prefill of prompt+t, layer by layer",
+          flush=True)
+    try:
+        for name, steps, per_layer in (("zamba2-7b", 3, True),
+                                       ("granite-3-2b", 3, False)):
+            full = get_config(name)
+            prompt = seeded_prompts(full, [1024])[0][:256]
+            for dtype, reduced in (("bfloat16", True), ("bfloat16", False),
+                                   ("float32", False)):
+                if dtype == "float32" and not per_layer:
+                    continue
+                torch.backends.cuda.matmul \
+                    .allow_bf16_reduced_precision_reduction = reduced
+                cfg = dataclasses.replace(full, dtype=dtype)
+                model = M.init_params(cfg, SEED, device="cuda")
+                worst, rel = 0.0, []
+                with torch.no_grad():
+                    logits, state = M.prefill(cfg, model, {
+                        "tokens": torch.tensor([prompt], device="cuda")},
+                        len(prompt) + steps + 1)
+                    seq, nxt = list(prompt), int(logits[0, -1].argmax())
+                    for t in range(steps):
+                        seq.append(nxt)
+                        rec.clear()
+                        a, state = M.decode_step(cfg, model, state,
+                                                 torch.tensor([[nxt]],
+                                                              device="cuda"))
+                        dec = list(rec)
+                        rec.clear()
+                        b, _ = M.prefill(cfg, model, {"tokens": torch.tensor(
+                            [seq], device="cuda")}, len(seq))
+                        if t == 0:
+                            rel = [((x - y).abs().max()
+                                    / y.abs().max().clamp(min=1e-30)).item()
+                                   for x, y in zip(dec, rec)]
+                        la = torch.log_softmax(a[0, -1].float(), -1)
+                        lb = torch.log_softmax(b[0, -1].float(), -1)
+                        top = torch.topk(lb, 32).indices
+                        worst = max(worst, (la[top] - lb[top]).abs().max()
+                                    .item())
+                        nxt = int(a[0, -1].argmax())
+                print(f"  {name} {dtype} reduced-precision split-K "
+                      f"{'allowed' if reduced else 'off'}: max |dlogp| over "
+                      f"top-32 = {worst:.4f} (tol {CONSISTENCY_TOL})",
+                      flush=True)
+                if per_layer:
+                    print(f"    per layer (step 1, {len(rel)} inputs): "
+                          + " ".join(f"{r:.1e}" for r in rel), flush=True)
+                del model, state
+                free_cuda(torch)
+    finally:
+        ssm.mamba2_block, ssm.mamba2_step, M._attn_prefill, \
+            M._attn_decode = orig
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            True
 
 
 def seeded_prompts(cfg, lens: list[int]) -> list[list[int]]:
@@ -593,6 +694,7 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
                  kv_bytes: int, park_at: int | None = None,
                  open_gates: bool = False,
                  consistency: tuple[int, int, int] | None = None,
+                 consistency_dtype: str | None = None,
                  live_follow_up: bool = False, check_warm: bool = False,
                  profile_prompt: list[int] | None = None) -> dict:
     """Serve ``cfg`` (random weights from SEED) through ServingEngines on
@@ -608,7 +710,10 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
     (a follow-up of the second session is a live hit, no prefill),
     ``check_warm`` (Router.warm promotes the parked session) and
     ``consistency`` = (session, prompt tokens, steps), the decode path
-    against the prefill path; ``profile_prompt`` adds a profiled prefill."""
+    against the prefill path, checked in ``consistency_dtype`` when given (a
+    second model from the same seed, whose weights round to the served
+    ones; the served dtype's figure is then printed beside it, unchecked);
+    ``profile_prompt`` adds a profiled prefill."""
     from repro_torch.core.config import ServingConfig
     from repro_torch.core.locstore import LocStore, tiered_hierarchy
     from repro_torch.core.prefetch import PrefetchEngine
@@ -692,7 +797,8 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
           f"{prefills} prefills = {flash_per_prefill * prefills}), "
           f"decode_attention {k2} ({decode_per_step} x {n_steps} decode steps "
           f"= {decode_per_step * n_steps})", flush=True)
-    need(k1 > 0 and (k2 > 0 or decode_per_step == 0),
+    need((k1 > 0 or flash_per_prefill == 0)
+         and (k2 > 0 or decode_per_step == 0),
          f"{label}: a kernel of the path was never launched")
     need(k1 == flash_per_prefill * prefills,
          f"{label}: flash launches {k1} != {flash_per_prefill} x {prefills}")
@@ -749,13 +855,24 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
         torch, f"one pooled decode step (B={max_batch})",
         lambda: engines[-1].step(), 2)
     if profile_prompt is not None:
+        p_eng = next((e for e in engines if e.can_admit()), None)
+        need(p_eng is not None, f"{label}: no free slot for the profiled "
+             f"prefill")
         res["profile_prefill"] = profile(
             torch, f"one {len(profile_prompt)}-token prefill",
-            lambda: engines[0].finish(engines[0].submit(profile_prompt)), 1)
+            lambda: p_eng.finish(p_eng.submit(profile_prompt)), 1)
     if consistency is not None:
         i, n, k = consistency
+        gated = (cfg, model)
+        if consistency_dtype is not None:
+            res["consistency_served_dtype"] = check_consistency(
+                torch, M, cfg, model, prompts[i][:n], k, label, ex[i],
+                gate=False)
+            c2 = dataclasses.replace(cfg, dtype=consistency_dtype)
+            gated = (c2, M.init_params(c2, SEED, device="cuda"))
         res["consistency"] = check_consistency(
-            torch, M, cfg, model, prompts[i][:n], k, label, ex[i])
+            torch, M, *gated, prompts[i][:n], k, label, ex[i])
+        del gated
     res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     print(f"  peak memory {res['peak_memory_bytes'] / 2**30:.2f} GiB",
           flush=True)
@@ -958,6 +1075,60 @@ def serve_deepseek(torch, kern) -> dict:
         kv_bytes=cfg.n_layers * 2048 * m.cache_dim * 2 + 4)
 
 
+def serve_zamba2(torch, kern) -> dict:
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("zamba2-7b")
+    G, tail = divmod(cfg.n_layers, cfg.attn_every)
+    d_in, H, P, N = ssm.ssm_dims(cfg)
+    print(f"[serve] {cfg.name} at published width and depth ({cfg.n_layers} "
+          f"Mamba2 layers = {G} groups of {cfg.attn_every} + {tail}, each "
+          f"group followed by the one shared attention block; d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, "
+          f"SSM {H} heads x {P} x state {N}), {cfg.dtype}", flush=True)
+    # 6 sessions and the control take 7 of the 2 x 4 slots; the profiled
+    # prefill takes the last
+    lens = [1024, 700, 512, 384, 256, 128]
+    rng = np.random.default_rng(SEED + 2)
+    return serve_family(
+        torch, kern, cfg, label=cfg.name, n_engines=2, max_batch=4,
+        max_seq=2048, prompts=seeded_prompts(cfg, lens), steps=16,
+        flash_per_prefill=G, decode_per_step=G,
+        # the 13 application points' K/V, every layer's f32 SSM state and
+        # conv window, the 4-byte position
+        kv_bytes=2 * G * 2048 * cfg.n_kv_heads * cfg.hd * 2
+        + cfg.n_layers * H * P * N * 4
+        + cfg.n_layers * (cfg.ssm_conv - 1) * (d_in + 2 * N) * 4 + 4,
+        # in bf16 the two paths round at other places through 94 blocks and
+        # part by more than CONSISTENCY_TOL (0.158 on an H100); in f32 they
+        # agree (0.0000, each layer within 2.6e-5: --probe-consistency,
+        # PERF.md section 6), so the check runs on the f32 model and the
+        # bf16 figure is printed beside it
+        consistency=(0, 256, 3), consistency_dtype="float32",
+        profile_prompt=rng.integers(0, cfg.vocab, size=1024).tolist())
+
+
+def serve_rwkv(torch, kern) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv
+    cfg = get_config("rwkv6-1.6b")
+    H, K = rwkv.rwkv_dims(cfg)
+    print(f"[serve] {cfg.name} at published width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {H} WKV heads of {K}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}), {cfg.dtype}; attention-free: no "
+          f"kernel of the port runs on this path", flush=True)
+    lens = [512, 448, 384, 320, 256, 200, 160, 128, 96, 80, 64]
+    return serve_family(
+        torch, kern, cfg, label=cfg.name, n_engines=2, max_batch=8,
+        max_seq=2048, prompts=seeded_prompts(cfg, lens), steps=16,
+        flash_per_prefill=0, decode_per_step=0,
+        # f32 WKV states and both token-shift inputs per layer, at any length
+        kv_bytes=cfg.n_layers * H * K * K * 4 + 2 * cfg.n_layers
+        * cfg.d_model * 4 + 4,
+        consistency=(0, 128, 3))
+
+
 def trace_granite(torch, kern) -> dict:
     """A short seeded trace through the port's TraceDriver over two granite
     engines with the torch backend: every admission and migration is a real
@@ -1055,7 +1226,8 @@ def ptxas_summary(lines: list[str]) -> list[str]:
 
 def main(argv: list[str]) -> int:
     sweep = argv == ["--sweep-decode-chunks"]
-    if argv and not sweep:
+    probe = argv == ["--probe-consistency"]
+    if argv and not (sweep or probe):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     import torch
@@ -1109,6 +1281,9 @@ def main(argv: list[str]) -> int:
     if sweep:
         sweep_decode_chunks(torch, ref)
         return 0
+    if probe:
+        probe_consistency(torch)
+        return 0
     t0 = time.perf_counter()
     rows = kernel_phase(torch, kern)
     print(f"[kernels] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -1126,7 +1301,9 @@ def main(argv: list[str]) -> int:
                "gemma3-12b": gemma["launches"]}
     for name, phase in (("whisper-medium", serve_whisper),
                         ("llama-3.2-vision-90b", serve_vision),
-                        ("deepseek-v3-671b", serve_deepseek)):
+                        ("deepseek-v3-671b", serve_deepseek),
+                        ("zamba2-7b", serve_zamba2),
+                        ("rwkv6-1.6b", serve_rwkv)):
         t0 = time.perf_counter()
         by_path[name] = phase(torch, kern)["launches"]
         free_cuda(torch)

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import _vlm_layout, build_model
+from repro_torch.models.model import _hybrid_layout, _vlm_layout, build_model
 
 __all__ = ["to_torch", "to_numpy", "from_reference", "state_from_reference",
            "state_to_numpy"]
@@ -62,7 +62,9 @@ def from_reference(cfg: ModelConfig, np_params: dict,
     """The reference's param pytree as the port's model for ``cfg.family``:
     the stacked leaves of its layer scans (``blocks``; ``enc_blocks`` /
     ``dec_blocks``; ``self_groups`` (G, S_per, ...) / ``cross_blocks``;
-    ``dense_blocks`` / ``moe_blocks``) are split into one module per layer."""
+    ``dense_blocks`` / ``moe_blocks``; hybrid ``groups`` (G, A, ...) and
+    ``tail``; rwkv ``blocks``) are split into one module per layer. zamba2's
+    ``shared_attn`` is not stacked and is carried once."""
     dev = resolve_device(device)
     tree = _tree(lambda a: to_torch(a, dev), np_params)
     L = cfg.n_layers
@@ -80,7 +82,13 @@ def from_reference(cfg: ModelConfig, np_params: dict,
                                             cfg.first_dense_layers)
         tree["moe_blocks"] = _unstack(tree["moe_blocks"],
                                       L - cfg.first_dense_layers)
-    else:
+    elif cfg.family == "hybrid":
+        G, tail = _hybrid_layout(cfg)
+        tree["groups"] = [_unstack(g, cfg.attn_every)
+                          for g in _unstack(tree["groups"], G)]
+        if tail:
+            tree["tail"] = _unstack(tree["tail"], tail)
+    else:                                       # dense, localglobal, rwkv
         tree["blocks"] = _unstack(tree["blocks"], L)
     return build_model(cfg, tree)
 

@@ -9,9 +9,10 @@ by default (and fails without a card); ``--device cpu`` runs the plain
 versions. ``--full`` serves the published configuration instead of
 ``smoke()``, with random weights from seed 0; ``--layers N`` cuts its depth
 and keeps its width (deepseek-v3 and llama-3.2-vision do not fit one card
-whole). The encdec and vlm families get seeded frames or patches with every
-prompt (their frontends are stubbed, as in the reference). Families not
-ported yet (hybrid, rwkv) raise.
+whole; zamba2-7b and rwkv6-1.6b do, at full depth). Every family of
+``--arch`` is served; the encdec and vlm families get seeded frames or
+patches with every prompt (their frontends are stubbed, as in the
+reference).
 """
 
 from __future__ import annotations

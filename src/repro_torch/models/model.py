@@ -1,5 +1,6 @@
-"""Model API of the port: the dense, localglobal (gemma3), encdec (whisper),
-vlm (llama-3.2-vision) and moe (deepseek-v3, arctic) families.
+"""Model API of the port: every family of the reference — dense,
+localglobal (gemma3), encdec (whisper), vlm (llama-3.2-vision), moe
+(deepseek-v3, arctic), hybrid (zamba2) and rwkv.
 
 Public surface, mirroring ``repro.models.model``:
 
@@ -26,18 +27,26 @@ packages:
   moe                  {"pos", "dense_cache": (c1, c2), "moe_cache": (c1, c2)}
                        with MLA latents (n, B, S, kv_lora) / (n, B, S, rope),
                        else GQA (n, B, S, Hkv, hd) pairs
+  hybrid               {"pos", "groups": {"conv": (G*A, B, conv-1, d_in+2N),
+                        "ssm": (G*A, B, H, P, N)} (f32),
+                        "attn_k", "attn_v": (G, B, S, Hkv, hd),
+                        "tail": {"conv", "ssm"} of the tail layers}
+  rwkv                 {"pos", "tm_x", "cm_x": (L, B, d), "wkv": (L, B, H, K, K)}
+                       (f32; the same size whatever the length)
 
-Unlike the reference, ``decode_step`` writes the new cache rows into the
-state's tensors IN PLACE (one cache buffer, no copy per step); the returned
-state holds the same tensors.
+Unlike the reference, ``decode_step`` writes the new cache rows — and the
+recurrent conv, SSM and WKV states — into the state's tensors IN PLACE (one
+buffer, no copy per step); the returned state holds the same tensors.
 
 Attention goes through :mod:`repro_torch.kernels.ops`: the hand-written
 kernels for CUDA tensors, their plain versions for CPU tensors — self and
 cross attention at prefill through the flash kernel, self and cross
 attention at decode through the decode kernel. MLA decode (absorbed form)
 and the MoE experts stay torch matmuls, as the reference computes them
-outside any Pallas kernel. The hybrid and rwkv families raise
-``NotImplementedError`` until their slice of the port lands.
+outside any Pallas kernel; so do the Mamba2 chunked SSD and the RWKV scan
+(:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.rwkv`). zamba2's
+one shared attention block runs the flash kernel at prefill and the decode
+kernel at every step, at each of its application points.
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import attention_op, decode_attention_op
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (AttnDims, apply_rope, cache_update,
                                        cross_attend, cross_kv, embed_tokens,
                                        init_attn, init_linear, init_mlp,
@@ -59,17 +70,14 @@ from repro_torch.models.layers import (AttnDims, apply_rope, cache_update,
                                        unembed)
 
 DENSE_FAMILIES = ("dense", "localglobal")
-PORTED_FAMILIES = DENSE_FAMILIES + ("encdec", "vlm", "moe")
-_PORTED_LATER = {"hybrid": "Queue 1 item 7 (hybrid)",
-                 "rwkv": "Queue 1 item 7 (rwkv)"}
+FAMILIES = DENSE_FAMILIES + ("encdec", "vlm", "moe", "hybrid", "rwkv")
 _EXTRAS = {"encdec": "frames", "vlm": "patches"}   # the stubbed frontends
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"repro_torch: family {cfg.family!r} ({cfg.name}) is not ported "
-            f"yet; ROADMAP.md {_PORTED_LATER.get(cfg.family, 'Queue 1')}")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"repro_torch: unknown family {cfg.family!r} "
+                         f"({cfg.name})")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -110,6 +118,12 @@ def _vlm_layout(cfg: ModelConfig) -> tuple[int, int]:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole "
                          f"groups of {per}")
     return cfg.n_layers // per, per - 1
+
+
+def _hybrid_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(n_groups, n_tail): groups of (attn_every mamba + 1 shared attn)."""
+    n_groups = cfg.n_layers // cfg.attn_every
+    return n_groups, cfg.n_layers - n_groups * cfg.attn_every
 
 
 def _sinusoid(n: int, d: int) -> np.ndarray:
@@ -574,6 +588,152 @@ class MoeLM(_LM):
         return self._head(self._final(h)), dict(state, pos=pos + 1)
 
 
+# ============================================================ hybrid (zamba2)
+class HybridLM(_LM):
+    """zamba2: ``G`` groups of ``attn_every`` Mamba2 layers, each followed by
+    the ONE shared attention block (``ln``, ``attn``, ``ln2``, ``mlp``; its
+    params shared by every application point, its KV cache not), then the
+    tail's Mamba2 layers. ``groups[g][i]`` is the reference's
+    ``params["groups"]`` at (g, i)."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict) -> None:
+        super().__init__(cfg, tree["embed"], tree["final_norm"])
+        G, tail = _hybrid_layout(cfg)
+        if len(tree["groups"]) != G:
+            raise ValueError(f"{len(tree['groups'])} mamba groups for {G}")
+        self.groups = nn.ModuleList(_blocks(g, cfg.attn_every, "mamba layers")
+                                    for g in tree["groups"])
+        self.shared_attn = Params(tree["shared_attn"])
+        self.tail = _blocks(tree.get("tail", []), tail, "tail layers")
+
+    def _layers(self):
+        """(params, state key, index into that state) of every Mamba2 layer
+        in order, with None after each group's last: the shared block."""
+        A = self.cfg.attn_every
+        for g, group in enumerate(self.groups):
+            for i, p in enumerate(group):
+                yield p, "groups", g * A + i
+            yield None, "attn", g
+        for i, p in enumerate(self.tail):
+            yield p, "tail", i
+
+    def _mlp(self, h: torch.Tensor) -> torch.Tensor:
+        sa = self.shared_attn
+        return h + mlp_block(sa["mlp"], rms_norm(h, sa["ln2"], self.cfg.norm_eps))
+
+    def hidden(self, tokens: torch.Tensor, *,
+               state: dict | None = None) -> torch.Tensor:
+        """Final-normed hidden states of the chunked (parallel) pass. With
+        ``state`` each Mamba2 layer's exact post-sequence {conv, ssm} state
+        and each application point's K/V (``[:, :S]``) are written into it."""
+        cfg = self.cfg
+        sa, eps = self.shared_attn, cfg.norm_eps
+        B, S = tokens.shape
+        h = embed_tokens(self.embed, tokens)
+        positions = _positions(B, S, tokens.device)
+        for p, key, i in self._layers():
+            if p is None:
+                kv = None if state is None \
+                    else (state["attn_k"][i], state["attn_v"][i])
+                h = h + _attn_prefill(cfg, sa["attn"], rms_norm(h, sa["ln"], eps),
+                                      positions, 0, kv)
+                h = self._mlp(h)
+                continue
+            x = rms_norm(h, p["norm"], eps)
+            if state is None:
+                h = h + ssm_mod.mamba2_block(cfg, p["mamba"], x)
+                continue
+            y, st = ssm_mod.mamba2_block(cfg, p["mamba"], x, return_state=True)
+            state[key]["conv"][i] = st["conv"]
+            state[key]["ssm"][i] = st["ssm"]
+            h = h + y
+        return self._final(h)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self._head(self.hidden(tokens))
+
+    def prefill(self, tokens: torch.Tensor, max_seq: int):
+        B, S = tokens.shape
+        self._check_prompt(S, max_seq)
+        state = init_decode_state(self.cfg, B, max_seq, device=self.device)
+        h = self.hidden(tokens, state=state)
+        state["pos"].fill_(S)
+        return self._head(h[:, -1:]), state
+
+    def decode_step(self, state: dict, tokens: torch.Tensor):
+        cfg = self.cfg
+        sa, eps = self.shared_attn, cfg.norm_eps
+        pos = state["pos"]
+        lengths = (pos + 1).to(torch.int32)
+        h = embed_tokens(self.embed, tokens)
+        for p, key, i in self._layers():
+            if p is None:
+                h = h + _attn_decode(cfg, sa["attn"], rms_norm(h, sa["ln"], eps),
+                                     state["attn_k"][i], state["attn_v"][i],
+                                     pos, lengths)
+                h = self._mlp(h)
+                continue
+            conv, ssm = state[key]["conv"][i], state[key]["ssm"][i]
+            y, new = ssm_mod.mamba2_step(cfg, p["mamba"],
+                                         {"conv": conv, "ssm": ssm},
+                                         rms_norm(h, p["norm"], eps))
+            conv.copy_(new["conv"])
+            ssm.copy_(new["ssm"])
+            h = h + y
+        return self._head(self._final(h)), dict(state, pos=pos + 1)
+
+
+# ======================================================================= rwkv
+class RwkvLM(_LM):
+    """RWKV-6: ``blocks[l]`` (``ln1``, ``tm``, ``ln2``, ``cm``) is the
+    reference's ``params["blocks"]`` at layer l. One stateful pass serves
+    prefill (from a zero state) and decode (S >= 1 new tokens)."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict) -> None:
+        super().__init__(cfg, tree["embed"], tree["final_norm"])
+        self.blocks = _blocks(tree["blocks"], cfg.n_layers, "blocks")
+
+    def hidden(self, tokens: torch.Tensor, *,
+               state: dict | None = None) -> torch.Tensor:
+        """Final-normed hidden states over ``tokens``, carrying ``state``
+        (its token-shift inputs and WKV states are updated IN PLACE; ``None``
+        starts from zeros and keeps nothing)."""
+        cfg, eps = self.cfg, self.cfg.norm_eps
+        h = embed_tokens(self.embed, tokens)
+        for li, p in enumerate(self.blocks):
+            kw = {} if state is None else dict(last_x=state["tm_x"][li],
+                                               state=state["wkv"][li])
+            out, tm_new, wkv = rwkv_mod.time_mix(
+                cfg, p["tm"], rms_norm(h, p["ln1"], eps), **kw)
+            h = h + out
+            out, cm_new = rwkv_mod.channel_mix(
+                cfg, p["cm"], rms_norm(h, p["ln2"], eps),
+                last_x=None if state is None else state["cm_x"][li])
+            h = h + out
+            if state is not None:
+                state["tm_x"][li].copy_(tm_new)          # stored in f32
+                state["cm_x"][li].copy_(cm_new)
+                state["wkv"][li].copy_(wkv)
+        return self._final(h)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self._head(self.hidden(tokens))
+
+    def prefill(self, tokens: torch.Tensor, max_seq: int):
+        """The stateful pass from a zero state; the state has no sequence
+        axis, so ``max_seq`` sizes nothing (as in the reference)."""
+        B, S = tokens.shape
+        state = init_decode_state(self.cfg, B, max_seq, device=self.device)
+        h = self.hidden(tokens, state=state)
+        state["pos"].fill_(S)
+        return self._head(h[:, -1:]), state
+
+    def decode_step(self, state: dict, tokens: torch.Tensor):
+        """S >= 1 tokens per row; logits of every one, ``pos`` + S."""
+        h = self.hidden(tokens, state=state)
+        return self._head(h), dict(state, pos=state["pos"] + tokens.shape[1])
+
+
 # ===================================================================== init
 def _init_tree(cfg: ModelConfig, gen: torch.Generator | None,
                dev: torch.device) -> dict:
@@ -615,6 +775,24 @@ def _init_tree(cfg: ModelConfig, gen: torch.Generator | None,
             {"ln": zeros(), "attn": attn(), "gate": zeros((), torch.float32),
              "ln2": zeros(), "mlp": mlp(),
              "gate_mlp": zeros((), torch.float32)} for _ in range(G)]
+    elif cfg.family == "hybrid":
+        G, tail = _hybrid_layout(cfg)
+
+        def mamba_layer():
+            return {"norm": zeros(),
+                    "mamba": ssm_mod.init_mamba2(gen, cfg, dt, L, device=dev)}
+
+        tree["groups"] = [[mamba_layer() for _ in range(cfg.attn_every)]
+                          for _ in range(G)]
+        tree["shared_attn"] = {"ln": zeros(), "attn": attn(), "ln2": zeros(),
+                               "mlp": mlp()}
+        if tail:
+            tree["tail"] = [mamba_layer() for _ in range(tail)]
+    elif cfg.family == "rwkv":
+        tree["blocks"] = [{"ln1": zeros(), "ln2": zeros(),
+                           **rwkv_mod.init_rwkv_block(gen, cfg, dt, L,
+                                                      device=dev)}
+                          for _ in range(L)]
     else:                                                      # moe
 
         def moe_attn():
@@ -645,7 +823,7 @@ def _init_tree(cfg: ModelConfig, gen: torch.Generator | None,
 
 
 _CLASSES = {"dense": DenseLM, "localglobal": DenseLM, "encdec": EncDecLM,
-            "vlm": VisionLM, "moe": MoeLM}
+            "vlm": VisionLM, "moe": MoeLM, "hybrid": HybridLM, "rwkv": RwkvLM}
 
 
 def build_model(cfg: ModelConfig, tree: dict) -> _LM:
@@ -681,7 +859,8 @@ def _extras(cfg: ModelConfig, batch: dict) -> list[torch.Tensor]:
 
 def loss_fn(cfg: ModelConfig, model: _LM, batch: dict):
     """Next-token cross entropy (forward only: the port serves); the moe
-    family adds its router aux and MTP terms, as the reference does."""
+    family adds its router aux and MTP terms, as the reference does. rwkv's
+    pass starts from a zero state, as the reference's training pass."""
     if cfg.family == "moe":
         return model.loss(batch["tokens"], batch["labels"])
     loss = softmax_xent(model(batch["tokens"], *_extras(cfg, batch)),
@@ -696,7 +875,8 @@ def prefill(cfg: ModelConfig, model: _LM, batch: dict, max_seq: int):
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
                       device: str | torch.device | None = None) -> dict:
     """Zeros in the family's decode-state layout (cross caches hold
-    ``cfg.n_frames`` / ``cfg.n_patches`` rows, as the reference's)."""
+    ``cfg.n_frames`` / ``cfg.n_patches`` rows, as the reference's; the
+    recurrent states are f32 and have no sequence axis)."""
     _check_family(cfg)
     dev = torch.device("meta") if str(device) == "meta" \
         else resolve_device(device)
@@ -722,6 +902,25 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
         state.update(k=z(G, S_per, batch, max_seq, *kv),
                      v=z(G, S_per, batch, max_seq, *kv),
                      xk=z(G, batch, P, *kv), xv=z(G, batch, P, *kv))
+    elif cfg.family == "hybrid":
+        G, tail = _hybrid_layout(cfg)
+
+        def mamba_states(n):
+            st = ssm_mod.mamba2_init_state(cfg, n * batch, device=dev)
+            return {k: v.reshape(n, batch, *v.shape[1:]) for k, v in st.items()}
+
+        state.update(groups=mamba_states(G * cfg.attn_every),
+                     attn_k=z(G, batch, max_seq, *kv),
+                     attn_v=z(G, batch, max_seq, *kv))
+        if tail:
+            state["tail"] = mamba_states(tail)
+    elif cfg.family == "rwkv":
+        H, K = rwkv_mod.rwkv_dims(cfg)
+        L, d, f32 = cfg.n_layers, cfg.d_model, torch.float32
+        state.update(tm_x=torch.zeros((L, batch, d), dtype=f32, device=dev),
+                     cm_x=torch.zeros((L, batch, d), dtype=f32, device=dev),
+                     wkv=torch.zeros((L, batch, H, K, K), dtype=f32,
+                                     device=dev))
     else:
         def cache(n):
             if cfg.mla is not None:

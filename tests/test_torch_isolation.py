@@ -29,7 +29,8 @@ def _port_modules() -> list[str]:
 def test_every_module_imports_with_jax_and_repro_blocked():
     mods = _port_modules()
     assert {"repro_torch.serve.engine", "repro_torch.serve.traffic",
-            "repro_torch.models.moe", "repro_torch.models.mla"} <= set(mods)
+            "repro_torch.models.moe", "repro_torch.models.mla",
+            "repro_torch.models.ssm", "repro_torch.models.rwkv"} <= set(mods)
     assert len(mods) > 20
     code = "\n".join([
         "import importlib, sys",
