@@ -13,7 +13,8 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    and count);
 2. prints the build (seconds, and ptxas' registers / spills per kernel);
 3. holds each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at every serving path's shapes, the reference's edge shapes and
+   and bf16, at every serving path's shapes and the train step's (K1 at B4
+   S4096), the reference's edge shapes and
    the redesigned kernels' own edges (ragged tiles, offsets, windows that cut
    a tile or a chunk), and times kernel, plain version and PyTorch library
    calls (``scaled_dot_product_attention``, a yardstick only) on the device:
@@ -46,7 +47,19 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
 8. drives a short seeded trace through the port's TraceDriver over two
    granite-3-2b engines (real prefills, modeled service times) and prints
    its TraceReport beside the measured prefill seconds;
-9. prints the kernels' JSON line, the card line again, and last
+9. trains granite-3-2b at published width and depth (40 layers, bf16
+   weights, f32 AdamW moments, random weights from a seed) through
+   ``repro_torch.train.loop.train``: 3 steps of 8 x 4096 tokens in 2
+   microbatches, the flash kernel as the forward of its autograd node (160
+   launches a step: forward and per-layer recompute, 40 layers, 2
+   microbatches; no plain attention forward), the plain chunked backward
+   (80 a step); the same steps with f32 weights as a witness of the bf16
+   losses; then one step under the profiler (device busy and idle share,
+   time of K1, GEMMs, the plain backward and AdamW), the gradient check
+   against ``impl="plain"`` (depth 2, f32 and bf16; a forward with a
+   planted fault must fail it) and the restart check (depth 4, checkpoints
+   every 2 steps, a failure at step 5);
+10. prints the kernels' JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 With ``--sweep-decode-chunks`` it only times the decode kernel at the path's
@@ -176,8 +189,8 @@ DECODE_CASES = [
     (1, 64, 2, 1, 32, 16),
     (2, 1024, 16, 2, 128, 0),
 ]
-# the serving paths' shapes: (name, case); the first of each list is the
-# main path's (its times go in the kernels' JSON line)
+# the serving and training paths' shapes: (name, case); the first of each
+# list is the main path's (its times go in the kernels' JSON line)
 FLASH_PATH = [
     ("granite-3-2b", (1, 1024, 1024, 32, 8, 64, True, 0, 0)),
     ("gemma3-12b local", (1, 1536, 1536, 16, 8, 240, True, 1024, 0)),
@@ -193,6 +206,8 @@ FLASH_PATH = [
     ("deepseek MLA", (1, 1024, 1024, 128, 128, 192, True, 0, 0)),
     # zamba2-7b's shared attention block: hd 112 (3584 / 32), MHA
     ("zamba2 shared", (1, 1024, 1024, 32, 32, 112, True, 0, 0)),
+    # the train step's forwards: granite-3-2b, a microbatch of 4 x 4096
+    ("train granite-3-2b", (4, 4096, 4096, 32, 8, 64, True, 0, 0)),
 ]
 # V's own width where the path zero-pads V to the q/k head dim: the timed
 # kernel reads the padded V, the bound and the library call the unpadded one
@@ -1204,6 +1219,415 @@ def trace_granite(torch, kern) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ train phase
+TRAIN_RANGES = ("flash_attention_bwd_plain", "adamw_update")
+# gradient check: relative error norm per leaf, K1 under autograd against
+# torch autograd of the plain version. f32: K1 f32 is within 2e-5 of the
+# plain output (the kernel phase), so the gradients part by f32 noise that a
+# 2-layer pass grows to ~1e-5 (read: 4.8e-6). bf16: the bf16 model's
+# gradients move by ~1e-2 in every leaf under any one-rounding change of the
+# attention output. K1 rounds P to bf16 before P V; the plain version with
+# that one rounding reads 1.8e-2 against the plain one, as K1 does, and K1
+# against it 1.4e-2 (K1 rounds at its running max, not the final one). A
+# forward that drops one tile of keys (FAULT_TILE) reads 0.21. The limit
+# sits between, ~3x from each (PERF.md section 6, PR 15).
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
+# the planted fault the gradient check must see: a forward that skips the
+# first 128-key tile (K1's bf16 tile at hd 64) for the query rows that see
+# 8 tiles or more (rows 896.. of 1024)
+FAULT_TILE, FAULT_FROM_TILES = 128, 8
+RESTART_RTOL = 2e-2             # the reference's own (tests/test_train.py)
+# the f32 witness holds the bf16 run's losses to the same rtol as two runs
+# of the reference (read: 1.5e-5, 2.7e-3, 1.1e-2 at steps 1-3)
+WITNESS_RTOL = RESTART_RTOL
+
+
+class _CountPlain:
+    """Counts calls of the attention ops' plain versions while it is
+    entered (the train path must run none: its forwards are the kernel's,
+    its backward the chunked VJP, which calls neither)."""
+
+    def __init__(self, ref) -> None:
+        self.ref, self.calls = ref, 0
+
+    def __enter__(self):
+        self.orig = (self.ref.flash_attention_ref,
+                     self.ref.decode_attention_ref)
+
+        def counted(fn):
+            def wrapper(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return wrapper
+
+        self.ref.flash_attention_ref = counted(self.orig[0])
+        self.ref.decode_attention_ref = counted(self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.ref.flash_attention_ref, self.ref.decode_attention_ref = \
+            self.orig
+
+
+def profile_train_step(torch, fn) -> dict:
+    """One warm-up and one timed call of ``fn`` (a train step ending in a
+    host read of its loss), then one under torch.profiler: device busy time
+    (kernels and copies; the annotation ranges' own spans excluded) against
+    the timed wall, and the device time of K1, of every GEMM kernel, and of
+    the two annotated ranges (the plain attention backward, AdamW)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in avg
+           if getattr(e, "device_type", DeviceType.CPU) != DeviceType.CPU
+           and e.self_device_time_total > 0 and e.key not in TRAIN_RANGES]
+    dev.sort(key=lambda r: -r[1])
+    busy = sum(t for _, t, _ in dev)
+    ranges = {r: sum(e.device_time_total / 1e3 for e in avg if e.key == r
+                     and getattr(e, "device_type", DeviceType.CPU)
+                     == DeviceType.CPU) for r in TRAIN_RANGES}
+    k1 = sum(t for k, t, _ in dev if "flash_tc_kernel" in k
+             or "flash_kernel" in k)
+    gemm = sum(t for k, t, _ in dev
+               if re.search(r"gemm|xmma|nvjet|cutlass", k, re.I))
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / wall if busy else None,
+           "k1_forward_ms": k1, "gemm_kernels_ms": gemm,
+           "plain_attention_backward_ms": ranges["flash_attention_bwd_plain"],
+           "optimizer_ms": ranges["adamw_update"],
+           "top": [(k[:60], round(t, 3), n) for k, t, n in dev[:10]]}
+    if busy == 0.0:
+        print("  profile one train step: the profiler saw no device time "
+              "(not measured)", flush=True)
+        return out
+    print(f"  profile one train step: device busy {busy:.1f} ms of "
+          f"{wall:.1f} ms wall (idle share {out['idle_share']:.3f}); K1 "
+          f"forward {k1:.1f} ms, plain attention backward "
+          f"{out['plain_attention_backward_ms']:.1f} ms (range), GEMM "
+          f"kernels {gemm:.1f} ms (all, the backward's f32 products "
+          f"included), AdamW {out['optimizer_ms']:.1f} ms (range)",
+          flush=True)
+    for k, t, n in dev[:10]:
+        print(f"    {t:9.2f} ms  x{n:5d}  {k[:90]}", flush=True)
+    return out
+
+
+def plain_attention(torch, q, k, v, *, causal: bool = True, window: int = 0,
+                    round_p: bool = False, drop_tile: bool = False):
+    """The plain attention in f32 (``ref.flash_attention_ref``'s math) with
+    two options: ``round_p`` makes K1's one extra rounding (P = exp(s - max)
+    rounded to bf16 before P V, its row sum taken in f32 before the
+    rounding); ``drop_tile`` plants the fault of FAULT_TILE /
+    FAULT_FROM_TILES."""
+    B, Sq, Hq, hd = q.shape
+    _, Sk, Hkv, _ = k.shape
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * hd ** -0.5
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kpos <= qpos
+    if window > 0:
+        ok &= qpos - kpos < window
+    if drop_tile:
+        ok &= ~((qpos >= FAULT_TILE * (FAULT_FROM_TILES - 1))
+                & (kpos < FAULT_TILE))
+    s = s.masked_fill(~ok, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    if round_p:
+        p = p.to(torch.bfloat16).float()
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.float())
+    return o.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def plain_forward_node(torch, ref, **opts):
+    """``attention_op`` for the model: FlashAttentionFunction with the plain
+    attention of ``opts`` as its forward; the same plain chunked backward."""
+
+    class Node(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            ctx.save_for_backward(q, k, v)
+            ctx.opts = dict(causal=causal, window=window)
+            return plain_attention(torch, q, k, v, **ctx.opts, **opts)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v = ctx.saved_tensors
+            return (*ref.flash_attention_bwd_ref(q, k, v, do, **ctx.opts),
+                    None, None)
+
+    return lambda q, k, v, causal=True, window=0: Node.apply(q, k, v, causal,
+                                                             window)
+
+
+def grad_check(torch, dtype: str) -> dict:
+    """granite-3-2b at full width, depth 2, B 2, S 1024: the gradient of the
+    loss with K1 under autograd against the same with ``impl="plain"``
+    (torch autograd of the plain version); the worst per-leaf relative error
+    norm is checked against GRAD_TOL. The same reading of a forward with a
+    planted fault (FAULT_TILE) must exceed GRAD_TOL. In bf16 the reading of
+    a plain forward that rounds P as K1 does (same backward) is printed
+    beside K1's: it is the size of one such rounding."""
+    import functools
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=2,
+                              dtype=dtype)
+    model = M.make_trainable(cfg, M.init_params(cfg, SEED, device="cuda"))
+    x = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (2, 1025)).astype(np.int32)).cuda()
+    batch = {"tokens": x[:, :-1], "labels": x[:, 1:]}
+    names, params = zip(*model.named_parameters())
+    forwards = {"kernel": M.attention_op,
+                "plain": functools.partial(ops.attention_op, impl="plain"),
+                "tile dropped": plain_forward_node(torch, ref,
+                                                   drop_tile=True)}
+    if dtype == "bfloat16":
+        forwards["plain, P in bf16"] = plain_forward_node(torch, ref,
+                                                          round_p=True)
+    kernel_op = M.attention_op
+    loss, g = {}, {}
+    try:
+        for label, op in forwards.items():
+            M.attention_op = op
+            out, _ = M.loss_fn(cfg, model, batch)
+            loss[label] = out.item()
+            g[label] = torch.autograd.grad(out, params)
+    finally:
+        M.attention_op = kernel_op
+
+    def rel(a_label, b_label):
+        out = {}
+        for n, a, b in zip(names, g[a_label], g[b_label]):
+            den = b.float().norm().item()
+            num = (a.float() - b.float()).norm().item()
+            out[n] = num / den if den > 0 else num
+            need(math.isfinite(out[n]),
+                 f"grad check {dtype}: {n} not finite ({a_label})")
+        return out
+
+    tol = GRAD_TOL[dtype]
+    per_leaf = rel("kernel", "plain")
+    worst_name = max(per_leaf, key=per_leaf.get)
+    worst = per_leaf[worst_name]
+    ok = worst <= tol
+    print(f"  grad check {dtype} (2 layers, B2 S1024): loss kernel "
+          f"{loss['kernel']:.6f} plain {loss['plain']:.6f}; worst per-leaf "
+          f"relative error norm {worst:.3e} at {worst_name} over "
+          f"{len(names)} leaves, tol {tol} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    print("    per leaf, kernel vs plain: " + ", ".join(
+        f"{n} {r:.2e}" for n, r in per_leaf.items()), flush=True)
+    res = {"worst": worst, "worst_leaf": worst_name, "per_leaf": per_leaf}
+    for label, against in (("plain, P in bf16", "plain"),
+                           ("kernel", "plain, P in bf16"),
+                           ("tile dropped", "plain")):
+        if label not in g or against not in g:
+            continue
+        r = rel(label, against)
+        n = max(r, key=r.get)
+        res[f"{label} vs {against}"] = r[n]
+        print(f"    {label} vs {against}: worst {r[n]:.3e} at {n}",
+              flush=True)
+    fault = res["tile dropped vs plain"]
+    print(f"    the planted fault reads {fault / tol:.1f}x the tolerance, "
+          f"the kernel {worst / tol:.2f}x", flush=True)
+    need(ok, f"grad check {dtype}: {worst_name} relative error {worst}")
+    need(fault > tol, f"grad check {dtype}: a forward that drops a tile "
+         f"reads {fault} <= {tol}: the check cannot see it")
+    del model, g
+    return res
+
+
+def f32_witness(torch, cfg, losses: list[float], B: int, S: int,
+                steps: int) -> dict:
+    """The train phase's steps again with f32 weights, gradients and
+    moments (the same seed, so the bf16 run's weights are these rounded;
+    the same corpus and schedule), in 4 microbatches of 2 so that the f32
+    state and activations fit the card: a witness of the bf16 run's losses
+    that makes none of its bf16 roundings (update, accumulation, the
+    forward's activations), held to WITNESS_RTOL at every step."""
+    from repro_torch.train.loop import TrainConfig, train
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    norms = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = train(cfg32, TrainConfig(steps=steps, batch=B, seq=S, microbatches=4,
+                                 seed=SEED),
+              device="cuda", on_step=lambda step, m: norms.append(
+                  (m["grad_norm"].item(), m["lr"].item())))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, r.losses)]
+    print(f"  f32 witness ({steps} steps of {B} x {S} in 4 microbatches, "
+          f"f32 weights and moments, {wall:.1f}s, peak {peak / 2**30:.2f} "
+          f"GiB): losses {[round(x, 6) for x in r.losses]} against bf16 "
+          f"{[round(x, 6) for x in losses]} (relative difference "
+          f"{[f'{x:.2e}' for x in rel]}); (grad norm, lr) "
+          f"{[(round(g, 4), lr) for g, lr in norms]}", flush=True)
+    need(len(r.losses) == steps and all(math.isfinite(x) for x in r.losses),
+         f"f32 witness losses {r.losses}")
+    need(max(rel) <= WITNESS_RTOL, f"f32 witness: bf16 losses {losses} vs "
+         f"f32 {r.losses}, relative difference {rel} > {WITNESS_RTOL}")
+    out = {"losses": r.losses, "relative_difference": rel, "wall_s": wall,
+           "peak_memory_bytes": peak}
+    del r
+    return out
+
+
+def train_granite(torch, kern) -> dict:
+    """granite-3-2b at published width and depth, bf16 weights, f32 AdamW
+    moments: three optimizer steps at seq 4096, a global batch of 8 in 2
+    microbatches, through ``repro_torch.train.loop.train``; then a profiled
+    step, the gradient check and the restart check."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_config("granite-3-2b")
+    B, S, MB, STEPS = 8, 4096, 2, 3
+    n_params = M.param_count(cfg)
+    per_step = 2 * cfg.n_layers * MB
+    print(f"[train] {cfg.name} at published width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab} padded "
+          f"{M.padded_vocab(cfg)}; {n_params:,} params), {cfg.dtype} weights, "
+          f"f32 moments and accumulator: {STEPS} steps of {B} x {S} tokens "
+          f"in {MB} microbatches, per-layer recompute, random weights seed "
+          f"{SEED}", flush=True)
+    flash, decode = kern["flash"], kern["decode"]
+    bwd = ref.flash_attention_bwd_ref
+    marks, k1_steps, bwd_steps, norms = [], [], [], []
+
+    def on_step(step, metrics):
+        marks.append(time.perf_counter())
+        k1_steps.append(flash.launches - sum(k1_steps))
+        bwd_steps.append(bwd.calls - sum(bwd_steps))
+        norms.append((metrics["grad_norm"].item(), metrics["lr"].item()))
+
+    torch.cuda.reset_peak_memory_stats()
+    flash.launches = 0
+    decode.launches = 0
+    bwd.calls = 0
+    t0 = time.perf_counter()
+    with _CountPlain(ref) as plain:
+        r = train(cfg, TrainConfig(steps=STEPS, batch=B, seq=S,
+                                   microbatches=MB, seed=SEED),
+                  device="cuda", on_step=on_step)
+    t_train = time.perf_counter() - t0
+    k1, k2, n_bwd = flash.launches, decode.launches, bwd.calls
+    peak = torch.cuda.max_memory_allocated()
+    walls = [b - a for a, b in zip(marks, marks[1:])]
+    print(f"  losses {[round(x, 6) for x in r.losses]}; (grad norm, lr) "
+          f"{[(round(g, 4), lr) for g, lr in norms]}; train() wall "
+          f"{t_train:.2f}s; steady step walls {[round(w, 4) for w in walls]}"
+          f" s; data waits {r.data_waits}", flush=True)
+    print(f"  launches: flash_attention {k1} ({k1_steps} per step, designed "
+          f"2 x {cfg.n_layers} layers x {MB} microbatches = {per_step}); "
+          f"decode_attention {k2}; plain attention backward {n_bwd} "
+          f"({bwd_steps} per step); plain attention forwards {plain.calls}",
+          flush=True)
+    need(all(math.isfinite(x) for x in r.losses) and len(r.losses) == STEPS,
+         f"train losses {r.losses}")
+    need(k1 > 0 and k1_steps == [per_step] * STEPS,
+         f"train: flash launches per step {k1_steps} != {per_step}")
+    need(k2 == 0, f"train: decode launches {k2}")
+    need(bwd_steps == [cfg.n_layers * MB] * STEPS,
+         f"train: plain backwards per step {bwd_steps}")
+    need(plain.calls == 0, f"train: {plain.calls} plain attention forwards")
+    step_s = float(np.median(walls))
+    tokens = B * S
+    mfu = 6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS)
+    print(f"  step wall {step_s:.4f} s (median of steps 2-{STEPS}), "
+          f"{tokens / step_s:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak:,} B); model FLOPs utilisation "
+          f"6 N tokens / (wall x {PEAK_BF16_FLOPS:.3g}) = {mfu:.4f} on "
+          f"{card_line()}", flush=True)
+    res = {"losses": r.losses, "step_wall_s": step_s, "step_walls_s": walls,
+           "tokens_per_s": tokens / step_s, "peak_memory_bytes": peak,
+           "mfu": mfu, "params": n_params,
+           "launches": {"flash_attention": k1_steps[-1],
+                        "decode_attention": 0},
+           "plain_backward_per_step": bwd_steps[-1]}
+    del r
+    free_cuda(torch)
+    res["f32_witness"] = f32_witness(torch, cfg, res["losses"], B, S, STEPS)
+    free_cuda(torch)
+
+    # one step of the same path under the profiler (fresh weights, seed
+    # SEED; the corpus's first batch)
+    model = M.make_trainable(cfg, M.init_params(cfg, SEED, device="cuda"))
+    oc = OptConfig(warmup_steps=10, total_steps=STEPS)
+    state = {"opt": init_opt_state(oc, dict(model.named_parameters()))}
+    step_fn = make_train_step(cfg, oc, microbatches=MB)
+    b = next(SyntheticCorpus(cfg.vocab, seed=SEED).batches(B, S))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+             for k, v in b.items()}
+
+    def one():
+        _, state["opt"], m = step_fn(model, state["opt"], batch)
+        m["loss"].item()
+
+    res["profile"] = profile_train_step(torch, one)
+    del model, state, step_fn
+    free_cuda(torch)
+
+    res["grad_check"] = {dt: grad_check(torch, dt)
+                         for dt in ("float32", "bfloat16")}
+    free_cuda(torch)
+
+    # restart: depth 4, checkpoints every 2 steps, a failure at step 5
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    tc = dict(steps=6, batch=4, seq=1024, ckpt_every=2, seed=SEED)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        failed = train(cfg4, TrainConfig(ckpt_dir=d, simulate_failure_at=5,
+                                         **tc), device="cuda")
+    base = train(cfg4, TrainConfig(**tc), device="cuda")
+    diff = abs(failed.losses[-1] - base.losses[-1])
+    same = failed.losses[-1] == base.losses[-1]
+    ok = failed.restarts == 1 and failed.steps_done == 6 \
+        and diff <= RESTART_RTOL * abs(base.losses[-1])
+    print(f"  restart check (4 layers, B4 S1024, checkpoints every 2 steps, "
+          f"failure at step 5, {time.perf_counter() - t0:.1f}s): final loss "
+          f"{failed.losses[-1]:.6f} vs {base.losses[-1]:.6f} without failure "
+          f"(|diff| {diff:.3e}, rtol {RESTART_RTOL}; "
+          f"{'bit-identical' if same else 'not bit-identical'}); first loss "
+          f"{base.losses[0]:.6f}, last {base.losses[-1]:.6f}; restarts "
+          f"{failed.restarts} {'ok' if ok else 'FAIL'}", flush=True)
+    need(ok, f"restart check: {failed.losses} vs {base.losses}")
+    res["restart"] = {"failed_losses": failed.losses,
+                      "base_losses": base.losses, "abs_diff": diff,
+                      "bit_identical": same}
+    print("  " + json.dumps({k: v for k, v in res.items()
+                             if k not in ("profile",)}), flush=True)
+    return res
+
+
 # ------------------------------------------------------------------ main
 def ptxas_summary(lines: list[str]) -> list[str]:
     """ptxas' registers, spills and warnings per kernel instance."""
@@ -1315,6 +1739,12 @@ def main(argv: list[str]) -> int:
     by_path["trace granite-3-2b"] = {"flash_attention": trace["launches"],
                                      "decode_attention": 0}
     print(f"[trace] phase done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t0 = time.perf_counter()
+    trained = train_granite(torch, kern)
+    free_cuda(torch)
+    by_path["train granite-3-2b"] = trained["launches"]
+    print(f"[train] phase done in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
     src_of = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",

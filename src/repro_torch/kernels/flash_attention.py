@@ -10,6 +10,13 @@ tensor cores (``wgmma``) fed by TMA, which reads q, k and v through the
 tensor maps this wrapper describes (:func:`tma_args`) and so needs
 hd % 8 == 0 and 16-byte aligned inputs; float32 runs on the CUDA cores,
 because tensor-core f32 is TF32 and would miss the 2e-5 f32 tolerance.
+
+The kernel has no gradient of its own, and neither has the TPU kernel it
+replaces. Training calls it as the forward of :class:`FlashAttentionFunction`,
+whose backward is the plain chunked VJP
+(:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`). The wrapper refuses
+to run the kernel where autograd would need a gradient of its output, so an
+output without a gradient path cannot reach a training step.
 """
 
 from __future__ import annotations
@@ -67,6 +74,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                        softmax_scale=softmax_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if (q.requires_grad or k.requires_grad or v.requires_grad) \
+            and torch.is_grad_enabled():
+        raise RuntimeError("flash_attention: the kernel has no gradient; "
+                           "inputs that require grad go through "
+                           "FlashAttentionFunction (ops.attention_op)")
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -110,3 +122,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0      # kernel launches; callers reset it to 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The kernel as the forward of an autograd node: forward launches it
+    through :func:`flash_attention` (the plain version for CPU tensors),
+    backward runs the plain chunked VJP on the saved q, k, v. Under
+    per-layer recompute the forward runs twice a layer and the backward
+    once."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int,
+                softmax_scale: float | None):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        softmax_scale=softmax_scale)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        with torch.autograd.profiler.record_function(
+                "flash_attention_bwd_plain"):
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, do, **ctx.opts)
+        return dq, dk, dv, None, None, None, None

@@ -2,7 +2,13 @@
 
 ``attention_op`` / ``decode_attention_op`` take ``impl``:
   * ``impl="kernel"`` (default) — the kernel's wrapper: the hand-written
-    Hopper kernel for a CUDA tensor, the plain version for a CPU tensor;
+    Hopper kernel for a CUDA tensor, the plain version for a CPU tensor.
+    Where autograd needs the output's gradient (grad enabled and an input
+    that requires it), ``attention_op`` runs the wrapper as the forward of
+    ``FlashAttentionFunction``, whose backward is the plain chunked VJP
+    (``ref.flash_attention_bwd_ref``); serving, under ``torch.no_grad()``,
+    calls the wrapper directly. The decode kernel has no such node: nothing
+    trains through a decode step;
   * ``impl="plain"`` — the plain PyTorch version on any device (the yardstick
     the card tests and ``chip_smoke.py`` hold the kernels to; nothing on the
     serving path passes it).
@@ -19,7 +25,8 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (FlashAttentionFunction,
+                                                 flash_attention)
 
 IMPLS = ("kernel", "plain")
 
@@ -33,6 +40,10 @@ def attention_op(q, k, v, *, causal: bool = True, window: int = 0,
                  q_offset: int = 0, softmax_scale: float | None = None,
                  impl: str = "kernel"):
     _check_impl(impl)
+    if impl == "kernel" and (q.requires_grad or k.requires_grad
+                             or v.requires_grad) and torch.is_grad_enabled():
+        return FlashAttentionFunction.apply(q, k, v, causal, window, q_offset,
+                                            softmax_scale)
     fn = ref.flash_attention_ref if impl == "plain" else flash_attention
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
               softmax_scale=softmax_scale)

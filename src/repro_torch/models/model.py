@@ -5,7 +5,7 @@ localglobal (gemma3), encdec (whisper), vlm (llama-3.2-vision), moe
 Public surface, mirroring ``repro.models.model``:
 
   init_params(cfg, seed, device)         -> the family's nn.Module
-  loss_fn(cfg, model, batch)            -> (loss, metrics)     [forward only]
+  loss_fn(cfg, model, batch)            -> (loss, metrics)     [train step core]
   prefill(cfg, model, batch, max_seq)   -> (last_logits, decode_state)
   init_decode_state(cfg, batch, max_seq, device) -> decode_state
   decode_step(cfg, model, state, tok)   -> (logits, decode_state)
@@ -38,6 +38,11 @@ Unlike the reference, ``decode_step`` writes the new cache rows — and the
 recurrent conv, SSM and WKV states — into the state's tensors IN PLACE (one
 buffer, no copy per step); the returned state holds the same tensors.
 
+A model's weights are frozen (serving) until :func:`make_trainable` lets
+autograd record them; the dense / localglobal families train so far, each
+layer recomputed in the backward (``torch.utils.checkpoint``, the
+reference's per-layer ``jax.checkpoint`` with ``nothing_saveable``).
+
 Attention goes through :mod:`repro_torch.kernels.ops`: the hand-written
 kernels for CUDA tensors, their plain versions for CPU tensors — self and
 cross attention at prefill through the flash kernel, self and cross
@@ -54,6 +59,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -138,8 +144,9 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
 
 
 class Params(nn.Module):
-    """A nested dict of weights as a module of frozen parameters, read as
-    the reference reads its pytree: ``p["attn"]["wq"]``, ``"w3" in p``."""
+    """A nested dict of weights as a module of parameters (frozen until
+    :func:`make_trainable`), read as the reference reads its pytree:
+    ``p["attn"]["wq"]``, ``"w3" in p``."""
 
     def __init__(self, tree: dict) -> None:
         super().__init__()
@@ -279,7 +286,14 @@ class DenseLM(_LM):
         B, S = tokens.shape
         h = embed_tokens(self.embed, tokens)
         positions = _positions(B, S, tokens.device)
+        # autograd records this pass (training): keep only each layer's input
+        # and recompute the layer in the backward
+        remat = h.requires_grad and torch.is_grad_enabled() and kv_out is None
         for li, (p, w) in enumerate(zip(self.blocks, self.windows)):
+            if remat:
+                h = checkpoint(_dense_layer, self.cfg, p, h, positions, w,
+                               use_reentrant=False)
+                continue
             kv = None if kv_out is None else (kv_out[0][li], kv_out[1][li])
             h = _dense_layer(self.cfg, p, h, positions, w, kv)
         return self._final(h)
@@ -857,10 +871,30 @@ def _extras(cfg: ModelConfig, batch: dict) -> list[torch.Tensor]:
     return [] if key is None else [batch[key]]
 
 
+TRAINABLE_FAMILIES = DENSE_FAMILIES
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for a family whose training is not ported yet."""
+    if cfg.family not in TRAINABLE_FAMILIES:
+        raise NotImplementedError(
+            f"repro_torch: training of the {cfg.family} family is not "
+            f"ported yet (trainable: {TRAINABLE_FAMILIES})")
+
+
+def make_trainable(cfg: ModelConfig, model: _LM) -> _LM:
+    """Let autograd record ``model``'s weights (in place; returns it). Only
+    the families whose training is ported: the others raise."""
+    check_trainable(cfg)
+    return model.requires_grad_(True)
+
+
 def loss_fn(cfg: ModelConfig, model: _LM, batch: dict):
-    """Next-token cross entropy (forward only: the port serves); the moe
-    family adds its router aux and MTP terms, as the reference does. rwkv's
-    pass starts from a zero state, as the reference's training pass."""
+    """Next-token cross entropy, the same in serving checks and in the
+    train step (with grad, the dense layers are recomputed in the backward);
+    the moe family adds its router aux and MTP terms, as the reference does.
+    rwkv's pass starts from a zero state, as the reference's training
+    pass."""
     if cfg.family == "moe":
         return model.loss(batch["tokens"], batch["labels"])
     loss = softmax_xent(model(batch["tokens"], *_extras(cfg, batch)),

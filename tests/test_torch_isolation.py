@@ -30,7 +30,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     mods = _port_modules()
     assert {"repro_torch.serve.engine", "repro_torch.serve.traffic",
             "repro_torch.models.moe", "repro_torch.models.mla",
-            "repro_torch.models.ssm", "repro_torch.models.rwkv"} <= set(mods)
+            "repro_torch.models.ssm", "repro_torch.models.rwkv",
+            "repro_torch.train.optimizer", "repro_torch.train.train_step",
+            "repro_torch.train.checkpoint", "repro_torch.train.loop",
+            "repro_torch.data.pipeline",
+            "repro_torch.launch.train"} <= set(mods)
     assert len(mods) > 20
     code = "\n".join([
         "import importlib, sys",
@@ -75,6 +79,18 @@ def test_default_device_refuses_to_run_on_cpu():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TorchComputeBackend(cfg, 32)
+
+
+def test_train_entry_points_refuse_to_run_on_cpu():
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.pipeline import PrefetchingLoader
+    from repro_torch.train.loop import TrainConfig, train
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(get_smoke("granite-3-2b"), TrainConfig(steps=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PrefetchingLoader(iter([]))
 
 
 def test_chip_smoke_alone_fails(tmp_path):
