@@ -4,6 +4,7 @@
     python3 chip_smoke.py                          # the whole check
     python3 chip_smoke.py --sweep-decode-chunks    # decode chunk sizes only
     python3 chip_smoke.py --probe-consistency      # zamba2 decode vs prefill
+    python3 chip_smoke.py --train-phase ARCH B S   # one family's train phase
 
 Run from the root of a checkout, on a machine with one CUDA card. It imports
 nothing of JAX and nothing of the reference package ``repro``; it builds the
@@ -13,8 +14,9 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    and count);
 2. prints the build (seconds, and ptxas' registers / spills per kernel);
 3. holds each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at every serving path's shapes and the train step's (K1 at B4
-   S4096), the reference's edge shapes and
+   and bf16, at every serving path's shapes and every train step's (K1 at
+   granite's B4 S4096 and the other families' train shapes), the
+   reference's edge shapes and
    the redesigned kernels' own edges (ragged tiles, offsets, windows that cut
    a tile or a chunk), and times kernel, plain version and PyTorch library
    calls (``scaled_dot_product_attention``, a yardstick only) on the device:
@@ -54,19 +56,35 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    launches a step: forward and per-layer recompute, 40 layers, 2
    microbatches; no plain attention forward), the plain chunked backward
    (80 a step); the same steps with f32 weights as a witness of the bf16
-   losses; then one step under the profiler (device busy and idle share,
-   time of K1, GEMMs, the plain backward and AdamW), the gradient check
-   against ``impl="plain"`` (depth 2, f32 and bf16; a forward with a
-   planted fault must fail it) and the restart check (depth 4, checkpoints
-   every 2 steps, a failure at step 5);
-10. prints the kernels' JSON line, the card line again, and last
+   losses; then one step under the profiler (device busy time as the union
+   of the device events' spans, idle share, time of K1, GEMMs, the plain
+   backward and AdamW), the gradient check against ``impl="plain"`` (depth
+   2, f32 and bf16; a forward with a planted fault must fail it) and the
+   restart check (depth 4, checkpoints every 2 steps, a failure at step 5);
+10. trains the other families at published width (``TRAIN_PHASES``):
+   whisper-medium (24 + 24 layers, B8 S448 with seeded frames), llama-3.2-
+   vision-90b (5 layers: one group, gates opened, B2 S1024 with seeded
+   patches, bf16 moments), deepseek-v3-671b (4 layers + MTP, B1 S1024; the
+   loss and its gradient only: one card cannot hold its AdamW state),
+   zamba2-7b (81 + 13 shared-block applications, B2 S2048, bf16 moments)
+   and rwkv6-1.6b (24 layers, B64 S64: its token-by-token scan launches
+   per token, so the same 4,096 tokens as B4 S1024 in 1/16 of the
+   launches): 3 steps each, the third profiled;
+   K1 launches checked every step against 2 x attention applications (+1
+   for MTP), plain backwards against the applications, no plain forward and
+   no decode kernel; the step's model FLOPs from its matmuls
+   (``forward_flops``); a gradient check per family with attention at
+   published width and a small depth (f32 and bf16, the planted fault
+   failing it), every binding of ``attention_op`` swapped;
+11. prints the kernels' JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 With ``--sweep-decode-chunks`` it only times the decode kernel at the path's
 shapes at each chunk size of CHUNKS_TRIED (how ``chunk_size`` was chosen);
 with ``--probe-consistency`` it only compares zamba2-7b's decode step with
-its prefill layer by layer (``probe_consistency``). Neither prints a result
-line.
+its prefill layer by layer (``probe_consistency``); with ``--train-phase``
+it only runs one family's train phase of TRAIN_PHASES at B x S tokens a
+step (``--train-phase rwkv6-1.6b 4 1024``). None prints a result line.
 
 Any failure exits non-zero before the last line. Without a CUDA device, or
 without the repository around it, it exits non-zero at once.
@@ -74,6 +92,7 @@ without the repository around it, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -208,6 +227,13 @@ FLASH_PATH = [
     ("zamba2 shared", (1, 1024, 1024, 32, 32, 112, True, 0, 0)),
     # the train step's forwards: granite-3-2b, a microbatch of 4 x 4096
     ("train granite-3-2b", (4, 4096, 4096, 32, 8, 64, True, 0, 0)),
+    # the other families' train steps (deepseek's MLA at B1 S1024 is the
+    # "deepseek MLA" shape above)
+    ("train whisper encoder", (8, 1500, 1500, 16, 16, 64, False, 0, 0)),
+    ("train whisper cross", (8, 448, 1500, 16, 16, 64, False, 0, 0)),
+    ("train vision self", (2, 1024, 1024, 64, 8, 128, True, 0, 0)),
+    ("train vision cross", (2, 1024, 1601, 64, 8, 128, False, 0, 0)),
+    ("train zamba2 shared", (2, 2048, 2048, 32, 32, 112, True, 0, 0)),
 ]
 # V's own width where the path zero-pads V to the q/k head dim: the timed
 # kernel reads the padded V, the bound and the library call the unpadded one
@@ -707,7 +733,7 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
                  max_batch: int, max_seq: int, prompts: list[list[int]],
                  steps: int, flash_per_prefill: int, decode_per_step: int,
                  kv_bytes: int, park_at: int | None = None,
-                 open_gates: bool = False,
+                 gates: bool = False,
                  consistency: tuple[int, int, int] | None = None,
                  consistency_dtype: str | None = None,
                  live_follow_up: bool = False, check_warm: bool = False,
@@ -741,13 +767,8 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
     torch.cuda.synchronize()
     print(f"  params {M.param_count(cfg):,} initialised in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
-    if open_gates:
-        # the reference initialises the gates at 0 and tanh(0) = 0 would cut
-        # the cross layers out of the path: open them
-        with torch.no_grad():
-            for xp in model.cross_blocks:
-                xp["gate"].fill_(0.5)
-                xp["gate_mlp"].fill_(0.5)
+    if gates:
+        open_gates(torch, model)
         print("  cross-attention gates set to 0.5 (tanh 0.462) in every "
               "group", flush=True)
     store = LocStore(n_engines, hierarchy=tiered_hierarchy())
@@ -917,10 +938,36 @@ def serve_granite(torch, kern) -> dict:
         profile_prompt=rng.integers(0, cfg.vocab, size=1024).tolist())
 
 
+def busy_ms(intervals) -> float:
+    """Length of the union of ``[start, end)`` intervals (the device's busy
+    time, in the intervals' unit): an instant covered by two events (a copy
+    on a side stream under a kernel) counts once."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def device_intervals(torch, prof) -> list[tuple[float, float]]:
+    """The profiled device events' spans in ms (kernels, copies, memsets);
+    the annotation ranges' device spans, which cover other events and the
+    gaps between them, are left out."""
+    from torch.autograd import DeviceType
+    return [(e.time_range.start / 1e3, e.time_range.end / 1e3)
+            for e in prof.events()
+            if getattr(e, "device_type", DeviceType.CPU) != DeviceType.CPU
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in TRAIN_RANGES]
+
+
 def profile(torch, what: str, fn, reps: int) -> dict:
     """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler),
     the host-side kernel launches per call, and the device's idle share
-    against the calls' wall time measured without the profiler."""
+    against the calls' wall time measured without the profiler; busy time is
+    the union of the device events' spans (``busy_ms``)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     fn()                                          # warm-up
@@ -948,20 +995,21 @@ def profile(torch, what: str, fn, reps: int) -> dict:
            if getattr(e, "device_type", DeviceType.CPU) != DeviceType.CPU
            and e.self_device_time_total > 0]
     dev.sort(key=lambda r: -r[1])
-    busy_ms = sum(t for _, t, _ in dev)
+    busy = busy_ms(device_intervals(torch, prof)) / reps
     launches = sum(c for k, c in rows
                    if k in ("cudaLaunchKernel", "cuLaunchKernel",
                             "cudaLaunchKernelExC", "cuLaunchKernelEx")) / reps
-    out = {"device_busy_ms": busy_ms, "wall_ms": wall,
+    out = {"device_busy_ms": busy, "wall_ms": wall,
+           "device_event_sum_ms": sum(t for _, t, _ in dev),
            "wall_ms_under_profiler": prof_wall_ms,
-           "idle_share": (1.0 - busy_ms / wall) if wall > 0 else None,
+           "idle_share": (1.0 - busy / wall) if wall > 0 else None,
            "host_launches": launches,
            "top": [(k[:60], round(t, 4), round(n, 1)) for k, t, n in dev[:8]]}
-    if busy_ms == 0.0:
+    if busy == 0.0:
         print(f"  profile {what}: the profiler saw no device time "
               f"(not measured)", flush=True)
     else:
-        print(f"  profile {what}: device busy {busy_ms:.3f} ms of {wall:.3f} "
+        print(f"  profile {what}: device busy {busy:.3f} ms of {wall:.3f} "
               f"ms wall (idle share {out['idle_share']:.3f}); "
               f"{launches:.0f} kernel launches per call", flush=True)
         for k, t, n in dev[:8]:
@@ -1064,7 +1112,7 @@ def serve_vision(torch, kern) -> dict:
         prompts=seeded_prompts(cfg, [512, 384, 200]), steps=8,
         flash_per_prefill=cfg.n_layers, decode_per_step=cfg.n_layers,
         kv_bytes=2 * (G * 4 * 2048 + G * cfg.n_patches) * kvw * 2 + 4,
-        open_gates=True, consistency=(0, 256, 3))
+        gates=True, consistency=(0, 256, 3))
 
 
 def serve_deepseek(torch, kern) -> dict:
@@ -1232,9 +1280,15 @@ TRAIN_RANGES = ("flash_attention_bwd_plain", "adamw_update")
 # forward that drops one tile of keys (FAULT_TILE) reads 0.21. The limit
 # sits between, ~3x from each (PERF.md section 6, PR 15).
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
+# bf16 leaves whose gradient is a sum of cancelling terms (the vlm gates,
+# zamba2's A_log) move under one rounding of P by more than GRAD_TOL; such a
+# leaf's limit is this factor times that move (granite's leaves read
+# <= 1.8e-2, so their limit stays GRAD_TOL)
+ROUNDING_FACTOR = 3.0
 # the planted fault the gradient check must see: a forward that skips the
 # first 128-key tile (K1's bf16 tile at hd 64) for the query rows that see
-# 8 tiles or more (rows 896.. of 1024)
+# 8 tiles or more (causal S1024: rows 896..; non-causal over 1,500 frames or
+# 1,601 patches: every row)
 FAULT_TILE, FAULT_FROM_TILES = 128, 8
 RESTART_RTOL = 2e-2             # the reference's own (tests/test_train.py)
 # the f32 witness holds the bf16 run's losses to the same rtol as two runs
@@ -1269,32 +1323,42 @@ class _CountPlain:
             self.orig
 
 
-def profile_train_step(torch, fn) -> dict:
-    """One warm-up and one timed call of ``fn`` (a train step ending in a
-    host read of its loss), then one under torch.profiler: device busy time
-    (kernels and copies; the annotation ranges' own spans excluded) against
-    the timed wall, and the device time of K1, of every GEMM kernel, and of
-    the two annotated ranges (the plain attention backward, AdamW)."""
-    from torch.autograd import DeviceType
+def train_profiler(torch):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
+    return torch_profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA], acc_events=True)
+
+
+def profile_train_step(torch, fn) -> dict:
+    """One warm-up and one timed call of ``fn`` (a train step ending in a
+    host read of its loss), then one under torch.profiler
+    (``train_profile``)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA],
-                       acc_events=True) as prof:
+    with train_profiler(torch) as prof:
         fn()
         torch.cuda.synchronize()
+    return train_profile(torch, prof, wall)
+
+
+def train_profile(torch, prof, wall: float) -> dict:
+    """A profiled train step against ``wall`` (the same step's wall in ms,
+    timed without the profiler): device busy time (the union of the device
+    events' spans, ``busy_ms``) and idle share, and the device time of K1,
+    of every GEMM kernel, and of the two annotated ranges (the plain
+    attention backward, AdamW)."""
+    from torch.autograd import DeviceType
     avg = prof.key_averages()
     dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in avg
            if getattr(e, "device_type", DeviceType.CPU) != DeviceType.CPU
            and e.self_device_time_total > 0 and e.key not in TRAIN_RANGES]
     dev.sort(key=lambda r: -r[1])
-    busy = sum(t for _, t, _ in dev)
+    busy = busy_ms(device_intervals(torch, prof))
     ranges = {r: sum(e.device_time_total / 1e3 for e in avg if e.key == r
                      and getattr(e, "device_type", DeviceType.CPU)
                      == DeviceType.CPU) for r in TRAIN_RANGES}
@@ -1302,22 +1366,27 @@ def profile_train_step(torch, fn) -> dict:
              or "flash_kernel" in k)
     gemm = sum(t for k, t, _ in dev
                if re.search(r"gemm|xmma|nvjet|cutlass", k, re.I))
+    launches = sum(e.count for e in avg if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+        "cuLaunchKernelEx"))
     out = {"wall_ms": wall, "device_busy_ms": busy,
+           "device_event_sum_ms": sum(t for _, t, _ in dev),
            "idle_share": 1.0 - busy / wall if busy else None,
            "k1_forward_ms": k1, "gemm_kernels_ms": gemm,
            "plain_attention_backward_ms": ranges["flash_attention_bwd_plain"],
-           "optimizer_ms": ranges["adamw_update"],
+           "optimizer_ms": ranges["adamw_update"], "host_launches": launches,
            "top": [(k[:60], round(t, 3), n) for k, t, n in dev[:10]]}
     if busy == 0.0:
         print("  profile one train step: the profiler saw no device time "
               "(not measured)", flush=True)
         return out
-    print(f"  profile one train step: device busy {busy:.1f} ms of "
-          f"{wall:.1f} ms wall (idle share {out['idle_share']:.3f}); K1 "
-          f"forward {k1:.1f} ms, plain attention backward "
-          f"{out['plain_attention_backward_ms']:.1f} ms (range), GEMM "
-          f"kernels {gemm:.1f} ms (all, the backward's f32 products "
-          f"included), AdamW {out['optimizer_ms']:.1f} ms (range)",
+    print(f"  profile one train step: device busy {busy:.1f} ms (union of "
+          f"the device events; their sum {out['device_event_sum_ms']:.1f} "
+          f"ms) of {wall:.1f} ms wall (idle share {out['idle_share']:.3f}); "
+          f"{launches} kernel launches; K1 forward {k1:.1f} ms, plain "
+          f"attention backward {out['plain_attention_backward_ms']:.1f} ms "
+          f"(range), GEMM kernels {gemm:.1f} ms (all, the backward's f32 "
+          f"products included), AdamW {out['optimizer_ms']:.1f} ms (range)",
           flush=True)
     for k, t, n in dev[:10]:
         print(f"    {t:9.2f} ms  x{n:5d}  {k[:90]}", flush=True)
@@ -1325,7 +1394,8 @@ def profile_train_step(torch, fn) -> dict:
 
 
 def plain_attention(torch, q, k, v, *, causal: bool = True, window: int = 0,
-                    round_p: bool = False, drop_tile: bool = False):
+                    softmax_scale: float | None = None, round_p: bool = False,
+                    drop_tile: bool = False):
     """The plain attention in f32 (``ref.flash_attention_ref``'s math) with
     two options: ``round_p`` makes K1's one extra rounding (P = exp(s - max)
     rounded to bf16 before P V, its row sum taken in f32 before the
@@ -1333,8 +1403,9 @@ def plain_attention(torch, q, k, v, *, causal: bool = True, window: int = 0,
     FAULT_FROM_TILES."""
     B, Sq, Hq, hd = q.shape
     _, Sk, Hkv, _ = k.shape
+    scale = hd ** -0.5 if softmax_scale is None else softmax_scale
     qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * hd ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -1343,7 +1414,8 @@ def plain_attention(torch, q, k, v, *, causal: bool = True, window: int = 0,
     if window > 0:
         ok &= qpos - kpos < window
     if drop_tile:
-        ok &= ~((qpos >= FAULT_TILE * (FAULT_FROM_TILES - 1))
+        seen = ok.sum(-1, keepdim=True)          # keys each row can see
+        ok &= ~((seen > FAULT_TILE * (FAULT_FROM_TILES - 1))
                 & (kpos < FAULT_TILE))
     s = s.masked_fill(~ok, -math.inf)
     p = torch.exp(s - s.amax(-1, keepdim=True))
@@ -1351,7 +1423,7 @@ def plain_attention(torch, q, k, v, *, causal: bool = True, window: int = 0,
     if round_p:
         p = p.to(torch.bfloat16).float()
     o = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.float())
-    return o.reshape(B, Sq, Hq, hd).to(q.dtype)
+    return o.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
 def plain_forward_node(torch, ref, **opts):
@@ -1360,59 +1432,123 @@ def plain_forward_node(torch, ref, **opts):
 
     class Node(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, causal, window):
+        def forward(ctx, q, k, v, causal, window, softmax_scale):
             ctx.save_for_backward(q, k, v)
-            ctx.opts = dict(causal=causal, window=window)
+            ctx.opts = dict(causal=causal, window=window,
+                            softmax_scale=softmax_scale)
             return plain_attention(torch, q, k, v, **ctx.opts, **opts)
 
         @staticmethod
         def backward(ctx, do):
             q, k, v = ctx.saved_tensors
             return (*ref.flash_attention_bwd_ref(q, k, v, do, **ctx.opts),
-                    None, None)
+                    None, None, None)
 
-    return lambda q, k, v, causal=True, window=0: Node.apply(q, k, v, causal,
-                                                             window)
+    return lambda q, k, v, causal=True, window=0, softmax_scale=None: \
+        Node.apply(q, k, v, causal, window, softmax_scale)
 
 
-def grad_check(torch, dtype: str) -> dict:
-    """granite-3-2b at full width, depth 2, B 2, S 1024: the gradient of the
-    loss with K1 under autograd against the same with ``impl="plain"``
-    (torch autograd of the plain version); the worst per-leaf relative error
-    norm is checked against GRAD_TOL. The same reading of a forward with a
-    planted fault (FAULT_TILE) must exceed GRAD_TOL. In bf16 the reading of
-    a plain forward that rounds P as K1 does (same backward) is printed
-    beside K1's: it is the size of one such rounding."""
+@contextlib.contextmanager
+def attention_forward(op):
+    """Every module's binding of ``attention_op`` (the model's self
+    attention, ``layers.cross_attend``'s, MLA's) swapped for ``op``."""
+    from repro_torch.models import layers, mla
+    from repro_torch.models import model as M
+    mods = (M, layers, mla)
+    orig = [m.attention_op for m in mods]
+    for m in mods:
+        m.attention_op = op
+    try:
+        yield
+    finally:
+        for m, o in zip(mods, orig):
+            m.attention_op = o
+
+
+NORM_LEAVES = ("ln", "ln1", "ln2", "lnx", "norm", "final_norm", "enc_norm",
+               "q_norm", "kv_norm")
+
+
+def attention_norm_gate_leaf(name: str) -> bool:
+    """The leaves a gradient check keeps where every leaf's gradient, four
+    times over, does not fit the card: attention projections (GQA, cross,
+    MLA), norm gains and the vlm gates."""
+    leaf = name.split(".")[-1]
+    return (".attn." in f".{name}" or ".xattn." in f".{name}"
+            or leaf in NORM_LEAVES or leaf in ("gate", "gate_mlp"))
+
+
+def seeded_batch(torch, cfg, B: int, S: int, seed: int = SEED) -> dict:
+    """Tokens and next-token labels from default_rng(seed), and the family's
+    frames / patches drawn on the card from a generator seeded with it."""
+    import numpy as np
+    from repro_torch.models import model as M
+    x = np.random.default_rng(seed).integers(0, cfg.vocab, (B, S + 1))
+    x = torch.from_numpy(x.astype(np.int32)).cuda()
+    batch = {"tokens": x[:, :-1].contiguous(), "labels": x[:, 1:].contiguous()}
+    key = M._EXTRAS.get(cfg.family)
+    if key is not None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        n = cfg.n_frames if key == "frames" else cfg.n_patches
+        batch[key] = torch.randn((B, n, cfg.d_model), generator=gen,
+                                 device="cuda")
+    return batch
+
+
+def open_gates(torch, model) -> None:
+    """The vlm gates start at 0, and tanh(0) = 0 cuts the cross layers out
+    of the path, the loss and every gradient behind them: set them to 0.5
+    (tanh 0.462)."""
+    with torch.no_grad():
+        for xp in model.cross_blocks:
+            xp["gate"].fill_(0.5)
+            xp["gate_mlp"].fill_(0.5)
+
+
+def grad_check(torch, kern, label: str, cfg, B: int, S: int, *,
+               all_leaves: bool = True) -> dict:
+    """``cfg`` (published width, a small depth): the gradient of the loss
+    with K1 under autograd against the same with the plain forward (torch
+    autograd of ``impl="plain"``) at every binding of ``attention_op``; the
+    worst per-leaf relative error norm is checked against GRAD_TOL. The same
+    reading of a forward with a planted fault (FAULT_TILE) must exceed
+    GRAD_TOL. In bf16 the reading of a plain forward that rounds P as K1
+    does (same backward) is printed beside K1's: it is the size of one such
+    rounding. K1 must launch in the kernel's run and in no other. Without
+    ``all_leaves`` the gradient is taken of the attention, norm and gate
+    leaves only (``attention_norm_gate_leaf``)."""
     import functools
 
-    import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     from repro_torch.models import model as M
-    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=2,
-                              dtype=dtype)
+    dtype = cfg.dtype
+    flash = kern["flash"]
     model = M.make_trainable(cfg, M.init_params(cfg, SEED, device="cuda"))
-    x = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (2, 1025)).astype(np.int32)).cuda()
-    batch = {"tokens": x[:, :-1], "labels": x[:, 1:]}
-    names, params = zip(*model.named_parameters())
-    forwards = {"kernel": M.attention_op,
+    if cfg.family == "vlm":
+        open_gates(torch, model)
+    batch = seeded_batch(torch, cfg, B, S)
+    names, params = zip(*[(n, p) for n, p in model.named_parameters()
+                          if all_leaves or attention_norm_gate_leaf(n)])
+    forwards = {"kernel": ops.attention_op,
                 "plain": functools.partial(ops.attention_op, impl="plain"),
                 "tile dropped": plain_forward_node(torch, ref,
                                                    drop_tile=True)}
     if dtype == "bfloat16":
         forwards["plain, P in bf16"] = plain_forward_node(torch, ref,
                                                           round_p=True)
-    kernel_op = M.attention_op
-    loss, g = {}, {}
-    try:
-        for label, op in forwards.items():
-            M.attention_op = op
+    loss, g, k1 = {}, {}, {}
+    for name, op in forwards.items():
+        n0 = flash.launches
+        with attention_forward(op):
             out, _ = M.loss_fn(cfg, model, batch)
-            loss[label] = out.item()
-            g[label] = torch.autograd.grad(out, params)
-    finally:
-        M.attention_op = kernel_op
+            loss[name] = out.item()
+            g[name] = torch.autograd.grad(out, params)
+        k1[name] = flash.launches - n0
+        del out
+    need(k1["kernel"] > 0 and all(n == 0 for f, n in k1.items()
+                                  if f != "kernel"),
+         f"grad check {label} {dtype}: K1 launches by forward {k1}")
 
     def rel(a_label, b_label):
         out = {}
@@ -1421,39 +1557,61 @@ def grad_check(torch, dtype: str) -> dict:
             num = (a.float() - b.float()).norm().item()
             out[n] = num / den if den > 0 else num
             need(math.isfinite(out[n]),
-                 f"grad check {dtype}: {n} not finite ({a_label})")
+                 f"grad check {label} {dtype}: {n} not finite ({a_label})")
         return out
 
     tol = GRAD_TOL[dtype]
     per_leaf = rel("kernel", "plain")
-    worst_name = max(per_leaf, key=per_leaf.get)
+    # bf16: a leaf may move by up to ROUNDING_FACTOR x what one rounding of
+    # P (the plain forward that rounds P as K1 does) moves it, never less
+    # than GRAD_TOL (scalar leaves such as the vlm gates sum cancelling terms
+    # and move more under one rounding than a weight matrix does)
+    rounding = rel("plain, P in bf16", "plain") if "plain, P in bf16" in g \
+        else {}
+    limit = {n: max(tol, ROUNDING_FACTOR * rounding.get(n, 0.0))
+             for n in names}
+    ratio = {n: per_leaf[n] / limit[n] for n in names}
+    worst_name = max(ratio, key=ratio.get)
     worst = per_leaf[worst_name]
-    ok = worst <= tol
-    print(f"  grad check {dtype} (2 layers, B2 S1024): loss kernel "
-          f"{loss['kernel']:.6f} plain {loss['plain']:.6f}; worst per-leaf "
-          f"relative error norm {worst:.3e} at {worst_name} over "
-          f"{len(names)} leaves, tol {tol} {'ok' if ok else 'FAIL'}",
-          flush=True)
-    print("    per leaf, kernel vs plain: " + ", ".join(
-        f"{n} {r:.2e}" for n, r in per_leaf.items()), flush=True)
-    res = {"worst": worst, "worst_leaf": worst_name, "per_leaf": per_leaf}
-    for label, against in (("plain, P in bf16", "plain"),
-                           ("kernel", "plain, P in bf16"),
-                           ("tile dropped", "plain")):
-        if label not in g or against not in g:
+    ok = ratio[worst_name] <= 1.0
+    leaves = "every leaf" if all_leaves else \
+        "the attention, norm and gate leaves"
+    print(f"  grad check {label} {dtype} (B{B} S{S}; {leaves}, "
+          f"{len(names)}): loss kernel {loss['kernel']:.6f} plain "
+          f"{loss['plain']:.6f}; K1 launches {k1['kernel']}; worst per-leaf "
+          f"relative error norm {worst:.3e} at {worst_name} against its "
+          f"limit {limit[worst_name]:.3e} (GRAD_TOL {tol}; largest limit "
+          f"{max(limit.values()):.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+    top = sorted(per_leaf.items(), key=lambda kv: -kv[1])[:12]
+    print("    worst leaves, kernel vs plain: " + ", ".join(
+        f"{n} {r:.2e}" for n, r in top), flush=True)
+    res = {"worst": worst, "worst_leaf": worst_name,
+           "worst_over_limit": ratio[worst_name], "leaves": len(names),
+           "largest_limit": max(limit.values()), "k1_launches": k1["kernel"]}
+    for a_label, against in (("plain, P in bf16", "plain"),
+                             ("kernel", "plain, P in bf16"),
+                             ("tile dropped", "plain")):
+        if a_label not in g or against not in g:
             continue
-        r = rel(label, against)
+        r = rel(a_label, against)
         n = max(r, key=r.get)
-        res[f"{label} vs {against}"] = r[n]
-        print(f"    {label} vs {against}: worst {r[n]:.3e} at {n}",
+        res[f"{a_label} vs {against}"] = r[n]
+        print(f"    {a_label} vs {against}: worst {r[n]:.3e} at {n}",
               flush=True)
-    fault = res["tile dropped vs plain"]
-    print(f"    the planted fault reads {fault / tol:.1f}x the tolerance, "
-          f"the kernel {worst / tol:.2f}x", flush=True)
-    need(ok, f"grad check {dtype}: {worst_name} relative error {worst}")
-    need(fault > tol, f"grad check {dtype}: a forward that drops a tile "
-         f"reads {fault} <= {tol}: the check cannot see it")
-    del model, g
+    fault = rel("tile dropped", "plain")
+    fault_name = max(names, key=lambda n: fault[n] / limit[n])
+    fault_ratio = fault[fault_name] / limit[fault_name]
+    res["fault_over_limit"] = fault_ratio
+    print(f"    the planted fault reads {fault_ratio:.1f}x its leaf's limit "
+          f"(at {fault_name}), the kernel {ratio[worst_name]:.2f}x",
+          flush=True)
+    need(ok, f"grad check {label} {dtype}: {worst_name} relative error "
+         f"{worst} > {limit[worst_name]}")
+    need(fault_ratio > 1.0, f"grad check {label} {dtype}: a forward that "
+         f"drops a tile stays within every leaf's limit: the check cannot "
+         f"see it")
+    del model, g, params
+    free_cuda(torch)
     return res
 
 
@@ -1596,8 +1754,9 @@ def train_granite(torch, kern) -> dict:
     del model, state, step_fn
     free_cuda(torch)
 
-    res["grad_check"] = {dt: grad_check(torch, dt)
-                         for dt in ("float32", "bfloat16")}
+    res["grad_check"] = {dt: grad_check(
+        torch, kern, cfg.name, dataclasses.replace(cfg, n_layers=2, dtype=dt),
+        2, 1024) for dt in ("float32", "bfloat16")}
     free_cuda(torch)
 
     # restart: depth 4, checkpoints every 2 steps, a failure at step 5
@@ -1628,6 +1787,289 @@ def train_granite(torch, kern) -> dict:
     return res
 
 
+# ------------------------------------------------------------ family training
+def attention_applications(cfg) -> int:
+    """Attention applications of one pass that are recomputed in training:
+    every encoder, decoder self and cross layer (encdec), every layer (vlm,
+    moe), each application of the shared block (hybrid), none (rwkv). The
+    moe family's MTP block adds one, not recomputed."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "rwkv":
+        return 0
+    return cfg.n_layers
+
+
+def forward_flops(cfg, B: int, S: int) -> float:
+    """Matmul FLOPs (2 per multiply-add) of one forward pass over B x S
+    tokens: every projection on the tokens it is applied to (whisper's
+    encoder on its frames, the cross K/V on the frames or patches), QK^T and
+    PV over the pairs a mask lets through (MLA's PV at V's own 128 columns),
+    the router and the experts each token is routed to (top-k routed plus
+    the shared ones), the SSD's chunk products, the WKV state products, and
+    the head."""
+    from repro_torch.models import model as M
+    from repro_torch.models import rwkv, ssm
+    T, d, H, Hkv, hd = B * S, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def lin(t, i, o):
+        return 2.0 * t * i * o
+
+    def attn(sq, sk, causal, dqk=hd, dv=hd):
+        pairs = sq * (sq + 1) / 2 if causal else sq * sk
+        return 2.0 * B * H * (dqk + dv) * pairs
+
+    def gqa(t, tk=None, tq_len=S, tk_len=None, causal=True):
+        tk = t if tk is None else tk
+        tk_len = tq_len if tk_len is None else tk_len
+        return (lin(t, d, H * hd) + lin(t, H * hd, d) + 2 * lin(tk, d, Hkv * hd)
+                + attn(tq_len, tk_len, causal))
+
+    def mlp(t, ff, gated=True):
+        return (3 if gated else 2) * lin(t, d, ff)
+
+    head = lin(T, d, M.padded_vocab(cfg))
+    fam = cfg.family
+    if fam in ("dense", "localglobal"):
+        return cfg.n_layers * (gqa(T) + mlp(T, cfg.d_ff)) + head
+    if fam == "encdec":
+        F, E = cfg.n_frames, cfg.encoder_layers
+        enc = E * (gqa(B * F, tq_len=F, causal=False)
+                   + mlp(B * F, cfg.d_ff, False))
+        dec = cfg.n_layers * (gqa(T) + gqa(T, B * F, tk_len=F, causal=False)
+                              + mlp(T, cfg.d_ff, False))
+        return enc + dec + head
+    if fam == "vlm":
+        G, per = M._vlm_layout(cfg)
+        P = cfg.n_patches
+        return (G * per * (gqa(T) + mlp(T, cfg.d_ff))
+                + G * (gqa(T, B * P, tk_len=P, causal=False)
+                       + mlp(T, cfg.d_ff)) + head)
+    if fam == "moe":
+        m = cfg.mla
+        if m is None:
+            attn_f = gqa(T)
+        else:
+            attn_f = (lin(T, d, m.q_lora_rank)
+                      + lin(T, m.q_lora_rank, H * m.qk_head_dim)
+                      + lin(T, d, m.kv_lora_rank + m.qk_rope_head_dim)
+                      + lin(T, m.kv_lora_rank,
+                            H * (m.qk_nope_head_dim + m.v_head_dim))
+                      + lin(T, H * m.v_head_dim, d)
+                      + attn(S, S, True, m.qk_head_dim, m.v_head_dim))
+        dense = attn_f + mlp(T, cfg.d_ff)
+        routed = (lin(T, d, cfg.n_experts)
+                  + 3 * lin(T * cfg.experts_per_token, d, cfg.moe_d_ff)
+                  + 3 * lin(T, d, cfg.moe_d_ff * cfg.n_shared_experts)
+                  + (mlp(T, cfg.d_ff) if cfg.dense_residual else 0.0))
+        n_dense = cfg.first_dense_layers
+        total = n_dense * dense + (cfg.n_layers - n_dense) * (attn_f + routed)
+        if cfg.mtp_depth:
+            total += lin(T, 2 * d, d) + dense + head
+        return total + head
+    if fam == "hybrid":
+        d_in, Hs, P, N = ssm.ssm_dims(cfg)
+        Q = min(ssm.CHUNK, S)
+        nc = -(-S // Q)
+        ssd = B * nc * (2.0 * Q * Q * N + 2.0 * Hs * Q * Q * P
+                        + 4.0 * Q * Hs * P * N)
+        mamba = lin(T, d, 2 * d_in + 2 * N + Hs) + lin(T, d_in, d) + ssd
+        G = cfg.n_layers // cfg.attn_every
+        return (cfg.n_layers * mamba + G * (gqa(T) + mlp(T, cfg.d_ff))
+                + head)
+    Hr, K = rwkv.rwkv_dims(cfg)                                 # rwkv
+    tm = (lin(T, d, 5 * rwkv.TM_LORA) + 5 * lin(T, rwkv.TM_LORA, d)
+          + lin(T, d, rwkv.W_LORA) + lin(T, rwkv.W_LORA, d) + 5 * lin(T, d, d)
+          + 4.0 * T * Hr * K * K)
+    cm = lin(T, d, cfg.d_ff) + lin(T, cfg.d_ff, d) + lin(T, d, d)
+    return cfg.n_layers * (tm + cm) + head
+
+
+# The five families' train phases: published width, the depth one card
+# holds; steps 1 (warm-up), 2 (timed) and 3 (profiled); the gradient check
+# at published width and a small depth (the config fields in "cut"; B, S),
+# on every leaf or on the attention, norm and gate leaves where four sets of
+# every leaf's gradient do not fit. rwkv has no attention and no check; its
+# scan runs token by token, ~43 launches per token and layer a step
+# (1.05 million a step at B4 S1024, 40.4 s: PERF.md), so it trains the same
+# 4,096 tokens a step as B64 S64 (``--train-phase rwkv6-1.6b 4 1024`` runs
+# the B4 S1024 step).
+TRAIN_PHASES = [
+    dict(arch="whisper-medium", layers=None, B=8, S=448, moments="float32",
+         check=dict(cut=dict(n_layers=2, encoder_layers=2), B=2, S=448,
+                    all_leaves=True)),
+    dict(arch="llama-3.2-vision-90b", layers=5, B=2, S=1024,
+         moments="bfloat16", check=dict(cut=dict(n_layers=5), B=1, S=1024,
+                                        all_leaves=False)),
+    dict(arch="deepseek-v3-671b", layers=4, B=1, S=1024, moments=None,
+         check=dict(cut=dict(n_layers=3), B=1, S=1024, all_leaves=False)),
+    dict(arch="zamba2-7b", layers=None, B=2, S=2048, moments="bfloat16",
+         check=dict(cut=dict(n_layers=12), B=1, S=2048, all_leaves=True)),
+    dict(arch="rwkv6-1.6b", layers=None, B=64, S=64, moments="float32",
+         check=None),
+]
+TRAIN_STEPS = 3
+
+
+@contextlib.contextmanager
+def gates_opened(torch, M):
+    """``init_params`` of a vlm model opens its gates (``open_gates``), so
+    that ``train()`` trains the cross layers from its first step."""
+    orig = M.init_params
+
+    def init(cfg, *a, **kw):
+        model = orig(cfg, *a, **kw)
+        if cfg.family == "vlm":
+            open_gates(torch, model)
+        return model
+
+    M.init_params = init
+    try:
+        yield
+    finally:
+        M.init_params = orig
+
+
+def train_family(torch, kern, spec: dict) -> dict:
+    """One family's train phase: TRAIN_STEPS steps of ``spec`` through
+    ``repro_torch.train.loop.train`` (deepseek: the loss and its gradient,
+    no optimizer, as one card cannot hold its AdamW state), the third under
+    the profiler; K1 launches and plain backwards checked every step, no
+    plain forward and no decode kernel; then the gradient check in f32 and
+    bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.train.optimizer import OptConfig
+    full = get_config(spec["arch"])
+    cfg = full if spec["layers"] is None else \
+        dataclasses.replace(full, n_layers=spec["layers"])
+    B, S, steps = spec["B"], spec["S"], TRAIN_STEPS
+    apps, mtp = attention_applications(cfg), cfg.mtp_depth
+    k1_design, bwd_design = 2 * apps + mtp, apps + mtp
+    n_params = M.param_count(cfg)
+    optimizer = spec["moments"] is not None
+    depth = f"depth cut {full.n_layers} -> {cfg.n_layers}" \
+        if cfg.n_layers != full.n_layers else "published depth"
+    print(f"[train] {full.name} at published width, {depth} ({n_params:,} "
+          f"params, {cfg.dtype} weights; "
+          + (f"AdamW with {spec['moments']} moments" if optimizer else
+             "loss and gradient only, no optimizer step")
+          + f"): {steps} steps of {B} x {S} tokens, one microbatch, per-layer "
+          f"recompute, random weights seed {SEED}; K1 designed "
+          f"2 x {apps} applications" + (f" + {mtp} (MTP)" if mtp else "")
+          + f" = {k1_design} a step", flush=True)
+    flash, decode = kern["flash"], kern["decode"]
+    bwd = ref.flash_attention_bwd_ref
+    marks, k1_steps, bwd_steps, metrics_read = [], [], [], []
+    prof = train_profiler(torch)
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        k1_steps.append(flash.launches - sum(k1_steps))
+        bwd_steps.append(bwd.calls - sum(bwd_steps))
+        metrics_read.append({k: float(v) for k, v in metrics.items()})
+        if step == steps - 1:
+            prof.start()
+        elif step == steps:
+            prof.stop()
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    flash.launches = 0
+    decode.launches = 0
+    bwd.calls = 0
+    t0 = time.perf_counter()
+    with _CountPlain(ref) as plain, gates_opened(torch, M):
+        if optimizer:
+            oc = OptConfig(warmup_steps=10, total_steps=steps,
+                           moment_dtype=spec["moments"])
+            r = train(cfg, TrainConfig(steps=steps, batch=B, seq=S,
+                                       seed=SEED), oc, on_step=on_step,
+                      device="cuda")
+            losses, waits = r.losses, r.data_waits
+            del r
+        else:
+            model = M.make_trainable(cfg, M.init_params(cfg, SEED,
+                                                        device="cuda"))
+            params = [p for _, p in model.named_parameters()]
+            it = SyntheticCorpus(cfg.vocab, seed=SEED).batches(B, S)
+            losses, waits = [], 0
+            for step in range(1, steps + 1):
+                batch = {k: torch.from_numpy(v).cuda()
+                         for k, v in next(it).items()}
+                loss, metrics = M.loss_fn(cfg, model, batch)
+                grads = torch.autograd.grad(loss, params)
+                losses.append(loss.item())
+                del loss, grads
+                on_step(step, metrics)
+            del model, params
+    t_train = time.perf_counter() - t0
+    k2 = decode.launches
+    peak = torch.cuda.max_memory_allocated()
+    walls = [b - a for a, b in zip(marks, marks[1:])]
+    print(f"  losses {[round(x, 6) for x in losses]}; metrics "
+          f"{[{k: round(v, 6) for k, v in m.items()} for m in metrics_read]}"
+          f"; {t_train:.2f}s; step walls {[round(w, 4) for w in walls]} s "
+          f"(the last profiled); data waits {waits}", flush=True)
+    print(f"  launches: flash_attention {k1_steps} per step (designed "
+          f"{k1_design}); decode_attention {k2}; plain attention backward "
+          f"{bwd_steps} per step (designed {bwd_design}); plain attention "
+          f"forwards {plain.calls}", flush=True)
+    need(len(losses) == steps and all(math.isfinite(x) for x in losses),
+         f"train {cfg.name}: losses {losses}")
+    need(k1_steps == [k1_design] * steps and (k1_design > 0 or apps == 0),
+         f"train {cfg.name}: flash launches per step {k1_steps} != "
+         f"{k1_design}")
+    need(bwd_steps == [bwd_design] * steps,
+         f"train {cfg.name}: plain backwards per step {bwd_steps} != "
+         f"{bwd_design}")
+    need(k2 == 0, f"train {cfg.name}: decode launches {k2}")
+    need(plain.calls == 0, f"train {cfg.name}: {plain.calls} plain attention "
+         f"forwards")
+    step_s = walls[0]
+    tokens = B * S
+    flops = 3 * forward_flops(cfg, B, S)
+    mfu = flops / (step_s * PEAK_BF16_FLOPS)
+    six_n = 6 * n_params * tokens / (step_s * PEAK_BF16_FLOPS)
+    card = card_line()
+    print(f"  step wall {step_s:.4f} s (step 2), {tokens / step_s:.0f} "
+          f"tokens/s, peak memory {peak / 2**30:.2f} GiB ({peak:,} B); "
+          f"model FLOPs a step {flops:.4e} (3 x the forward's matmul FLOPs; "
+          f"the recompute not counted), MFU {mfu:.4f} (6 N tokens would "
+          f"say {six_n:.4f}) on {card}", flush=True)
+    res = {"losses": losses, "step_wall_s": step_s, "step_walls_s": walls,
+           "tokens_per_s": tokens / step_s, "peak_memory_bytes": peak,
+           "model_flops": flops, "mfu": mfu, "mfu_6n": six_n,
+           "params": n_params,
+           "launches": {"flash_attention": k1_steps[-1],
+                        "decode_attention": 0},
+           "plain_backward_per_step": bwd_steps[-1]}
+    res["profile"] = train_profile(torch, prof, 1e3 * step_s)
+    del prof
+    free_cuda(torch)
+    chk = spec["check"]
+    if chk is None:
+        print(f"  no gradient check: {cfg.name} runs no attention, so the "
+              f"kernel's and the plain forward's runs are the same run",
+              flush=True)
+    else:
+        cut = ", ".join(f"{k} {v}" for k, v in chk["cut"].items())
+        res["grad_check"] = {dt: grad_check(
+            torch, kern, f"{full.name} ({cut})",
+            dataclasses.replace(full, dtype=dt, **chk["cut"]),
+            chk["B"], chk["S"], all_leaves=chk["all_leaves"])
+            for dt in ("float32", "bfloat16")}
+    print("  " + json.dumps({k: v for k, v in res.items()
+                             if k not in ("profile",)}), flush=True)
+    return res
+
+
 # ------------------------------------------------------------------ main
 def ptxas_summary(lines: list[str]) -> list[str]:
     """ptxas' registers, spills and warnings per kernel instance."""
@@ -1651,7 +2093,12 @@ def ptxas_summary(lines: list[str]) -> list[str]:
 def main(argv: list[str]) -> int:
     sweep = argv == ["--sweep-decode-chunks"]
     probe = argv == ["--probe-consistency"]
-    if argv and not (sweep or probe):
+    phase = None
+    if argv[:1] == ["--train-phase"] and len(argv) == 4 \
+            and argv[2].isdigit() and argv[3].isdigit():
+        phase = next((dict(p, B=int(argv[2]), S=int(argv[3]))
+                      for p in TRAIN_PHASES if p["arch"] == argv[1]), None)
+    if argv and not (sweep or probe or phase):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     import torch
@@ -1708,6 +2155,9 @@ def main(argv: list[str]) -> int:
     if probe:
         probe_consistency(torch)
         return 0
+    if phase:
+        train_family(torch, kern, phase)
+        return 0
     t0 = time.perf_counter()
     rows = kernel_phase(torch, kern)
     print(f"[kernels] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -1746,6 +2196,13 @@ def main(argv: list[str]) -> int:
     by_path["train granite-3-2b"] = trained["launches"]
     print(f"[train] phase done in {time.perf_counter() - t0:.1f}s",
           flush=True)
+    for spec in TRAIN_PHASES:
+        t0 = time.perf_counter()
+        by_path[f"train {spec['arch']}"] = train_family(torch, kern,
+                                                        spec)["launches"]
+        free_cuda(torch)
+        print(f"[train] {spec['arch']} phase done in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     src_of = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:127"),

@@ -3,8 +3,8 @@
 Trains the smoke-scale variant of the chosen arch end to end (data
 pipeline, prefetch, checkpoints, optional simulated failure); ``--full``
 takes the published config and trains it on the one card, ``--layers``
-cuts its depth. Runs on ``cuda`` unless ``--device cpu``. The dense and
-localglobal families train so far; the others raise.
+cuts its depth. Runs on ``cuda`` unless ``--device cpu``. Every family
+trains (encdec and vlm on seeded frames / patches).
 """
 
 from __future__ import annotations
@@ -13,11 +13,11 @@ import argparse
 import dataclasses
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke
-from repro_torch.train.loop import TrainConfig, train
+from repro_torch.train.loop import TrainConfig, TrainResult, train
 from repro_torch.train.optimizer import OptConfig
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> TrainResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_NAMES, default="granite-3-2b")
     ap.add_argument("--steps", type=int, default=100)
@@ -55,6 +55,7 @@ def main(argv: list[str] | None = None) -> None:
     r = train(cfg, tc, oc, on_step=log, device=args.device)
     print(f"\ndone: {r.steps_done} steps, {r.restarts} restarts, "
           f"{r.wall_seconds:.1f}s, loss {r.losses[0]:.3f} -> {r.losses[-1]:.3f}")
+    return r
 
 
 if __name__ == "__main__":

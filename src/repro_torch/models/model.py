@@ -39,9 +39,15 @@ recurrent conv, SSM and WKV states — into the state's tensors IN PLACE (one
 buffer, no copy per step); the returned state holds the same tensors.
 
 A model's weights are frozen (serving) until :func:`make_trainable` lets
-autograd record them; the dense / localglobal families train so far, each
-layer recomputed in the backward (``torch.utils.checkpoint``, the
-reference's per-layer ``jax.checkpoint`` with ``nothing_saveable``).
+autograd record them; every family trains. When autograd records a pass,
+each layer is recomputed in the backward (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` with ``nothing_saveable``): every encoder,
+decoder, self, gated cross, dense, MoE, Mamba2 and RWKV layer, and each
+application of zamba2's shared block. The reference recomputes vlm and
+hybrid a whole group at a time; per layer saves a little more and computes
+the same numbers. So the flash kernel runs twice per attention application
+and microbatch (forward and recompute) and its plain backward once; the MTP
+block of the moe loss is not recomputed, as in the reference.
 
 Attention goes through :mod:`repro_torch.kernels.ops`: the hand-written
 kernels for CUDA tensors, their plain versions for CPU tensors — self and
@@ -268,6 +274,20 @@ class _LM(nn.Module):
         if S > max_seq:
             raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
 
+    def _remat(self, writes_state: bool) -> bool:
+        """Whether autograd records this pass (a training pass): then each
+        layer keeps only its inputs and is recomputed in the backward. A
+        pass that writes a cache or a state never is."""
+        return (torch.is_grad_enabled() and self.final_norm.requires_grad
+                and not writes_state)
+
+
+def _run(remat: bool, fn, *args):
+    """``fn(*args)``, under per-layer recompute when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
 
 # ============================================================ dense / gemma3
 class DenseLM(_LM):
@@ -286,16 +306,10 @@ class DenseLM(_LM):
         B, S = tokens.shape
         h = embed_tokens(self.embed, tokens)
         positions = _positions(B, S, tokens.device)
-        # autograd records this pass (training): keep only each layer's input
-        # and recompute the layer in the backward
-        remat = h.requires_grad and torch.is_grad_enabled() and kv_out is None
+        remat = self._remat(kv_out is not None)
         for li, (p, w) in enumerate(zip(self.blocks, self.windows)):
-            if remat:
-                h = checkpoint(_dense_layer, self.cfg, p, h, positions, w,
-                               use_reentrant=False)
-                continue
             kv = None if kv_out is None else (kv_out[0][li], kv_out[1][li])
-            h = _dense_layer(self.cfg, p, h, positions, w, kv)
+            h = _run(remat, _dense_layer, self.cfg, p, h, positions, w, kv)
         return self._final(h)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -335,7 +349,19 @@ class EncDecLM(_LM):
         self.dec_blocks = _blocks(tree["dec_blocks"], cfg.n_layers,
                                   "decoder blocks")
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def _enc_layer(self, p, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        B, F, _ = h.shape
+        hn = rms_norm(h, p["ln1"], cfg.norm_eps)
+        q = (hn @ p["attn"]["wq"]).reshape(B, F, cfg.n_heads, cfg.hd)
+        k = (hn @ p["attn"]["wk"]).reshape(B, F, cfg.n_kv_heads, cfg.hd)
+        v = (hn @ p["attn"]["wv"]).reshape(B, F, cfg.n_kv_heads, cfg.hd)
+        o = attention_op(q, k, v, causal=False)
+        h = h + o.reshape(B, F, -1) @ p["attn"]["wo"]
+        return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+
+    def encode(self, frames: torch.Tensor, *,
+               remat: bool = False) -> torch.Tensor:
         """Encoder output (B, F, d), in ``cfg.dtype``. The frames are taken
         in the model's dtype and the sinusoid is added there, as the
         reference adds it in the frames' dtype: for the bf16 configs the
@@ -343,43 +369,47 @@ class EncDecLM(_LM):
         reference's encoder scan refuses frames in another dtype than its
         weights (the carry changes dtype at the first residual: ROADMAP.md
         Queue 3); the port casts them instead."""
-        cfg = self.cfg
         B, F, d = frames.shape
         frames = frames.to(self.final_norm.dtype)
         h = frames + torch.from_numpy(_sinusoid(F, d)).to(
             frames.device, frames.dtype)[None]
         for p in self.enc_blocks:
-            hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-            q = (hn @ p["attn"]["wq"]).reshape(B, F, cfg.n_heads, cfg.hd)
-            k = (hn @ p["attn"]["wk"]).reshape(B, F, cfg.n_kv_heads, cfg.hd)
-            v = (hn @ p["attn"]["wv"]).reshape(B, F, cfg.n_kv_heads, cfg.hd)
-            o = attention_op(q, k, v, causal=False)
-            h = h + o.reshape(B, F, -1) @ p["attn"]["wo"]
-            h = h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
-        return rms_norm(h, self.enc_norm, cfg.norm_eps)
+            h = _run(remat, self._enc_layer, p, h)
+        return rms_norm(h, self.enc_norm, self.cfg.norm_eps)
+
+    def _dec_layer(self, p, h: torch.Tensor, enc_out: torch.Tensor,
+                   positions, kv=None, xkv=None) -> torch.Tensor:
+        """One decoder layer: causal self attention, cross attention over
+        ``enc_out`` (its K/V computed here, and written into ``xkv`` when
+        given), the MLP."""
+        cfg, dims = self.cfg, _dims(self.cfg)
+        h = h + _attn_prefill(cfg, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
+                              positions, 0, kv)
+        xk, xv = cross_kv(p["xattn"], enc_out, dims)
+        if xkv is not None:
+            xkv[0].copy_(xk)
+            xkv[1].copy_(xv)
+        h = h + cross_attend(p["xattn"], rms_norm(h, p["lnx"], cfg.norm_eps),
+                             xk, xv, dims)
+        return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
 
     def hidden(self, tokens: torch.Tensor, frames: torch.Tensor, *,
                state: dict | None = None) -> torch.Tensor:
         """Final-normed decoder states over ``tokens``. With ``state`` each
         layer's self K/V goes into ``state["k"/"v"][l, :, :S]`` and its cross
-        K/V into ``state["xk"/"xv"][l]``."""
-        cfg, dims = self.cfg, _dims(self.cfg)
-        enc_out = self.encode(frames)
+        K/V into ``state["xk"/"xv"][l]``. The encoder output is an input of
+        every decoder layer's recompute."""
+        remat = self._remat(state is not None)
+        enc_out = self.encode(frames, remat=remat)
         B, S = tokens.shape
         h = embed_tokens(self.embed, tokens)
         positions = _positions(B, S, tokens.device)
         for li, p in enumerate(self.dec_blocks):
-            kv = None if state is None else (state["k"][li], state["v"][li])
-            h = h + _attn_prefill(cfg, p["attn"],
-                                  rms_norm(h, p["ln1"], cfg.norm_eps),
-                                  positions, 0, kv)
-            xk, xv = cross_kv(p["xattn"], enc_out, dims)
+            kv = xkv = None
             if state is not None:
-                state["xk"][li] = xk
-                state["xv"][li] = xv
-            h = h + cross_attend(p["xattn"], rms_norm(h, p["lnx"], cfg.norm_eps),
-                                 xk, xv, dims)
-            h = h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+                kv = (state["k"][li], state["v"][li])
+                xkv = (state["xk"][li], state["xv"][li])
+            h = _run(remat, self._dec_layer, p, h, enc_out, positions, kv, xkv)
         return self._final(h)
 
     def forward(self, tokens: torch.Tensor,
@@ -436,9 +466,23 @@ class VisionLM(_LM):
         return h + torch.tanh(xp["gate_mlp"]).to(h.dtype) * mlp_block(
             xp["mlp"], rms_norm(h, xp["ln2"], self.cfg.norm_eps))
 
+    def _cross_layer(self, xp, h: torch.Tensor, patches: torch.Tensor,
+                     xkv=None) -> torch.Tensor:
+        """The gated cross layer: K/V of the patches (written into ``xkv``
+        when given), cross attention, the two gated residuals."""
+        cfg, dims = self.cfg, _dims(self.cfg)
+        xk, xv = cross_kv(xp["attn"], patches, dims)
+        if xkv is not None:
+            xkv[0].copy_(xk)
+            xkv[1].copy_(xv)
+        xo = cross_attend(xp["attn"], rms_norm(h, xp["ln"], cfg.norm_eps),
+                          xk, xv, dims)
+        return self._gated(xp, h, xo)
+
     def hidden(self, tokens: torch.Tensor, patches: torch.Tensor, *,
                state: dict | None = None) -> torch.Tensor:
-        cfg, dims = self.cfg, _dims(self.cfg)
+        cfg = self.cfg
+        remat = self._remat(state is not None)
         # bf16 patches (the engine's) enter an f32 model exactly, as JAX
         # promotes them at the reference's ``patches @ wk``
         patches = patches.to(self.final_norm.dtype)
@@ -450,14 +494,9 @@ class VisionLM(_LM):
             for s, p in enumerate(group):
                 kv = None if state is None \
                     else (state["k"][g, s], state["v"][g, s])
-                h = _dense_layer(cfg, p, h, positions, 0, kv)
-            xk, xv = cross_kv(xp["attn"], patches, dims)
-            if state is not None:
-                state["xk"][g] = xk
-                state["xv"][g] = xv
-            xo = cross_attend(xp["attn"], rms_norm(h, xp["ln"], cfg.norm_eps),
-                              xk, xv, dims)
-            h = self._gated(xp, h, xo)
+                h = _run(remat, _dense_layer, cfg, p, h, positions, 0, kv)
+            xkv = None if state is None else (state["xk"][g], state["xv"][g])
+            h = _run(remat, self._cross_layer, xp, h, patches, xkv)
         return self._final(h)
 
     def forward(self, tokens: torch.Tensor,
@@ -539,6 +578,7 @@ class MoeLM(_LM):
     def hidden(self, tokens: torch.Tensor, *, state: dict | None = None):
         """(final-normed hidden states, summed router aux loss)."""
         B, S = tokens.shape
+        remat = self._remat(state is not None)
         h = embed_tokens(self.embed, tokens)
         positions = _positions(B, S, tokens.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -547,7 +587,8 @@ class MoeLM(_LM):
             for li, p in enumerate(blocks):
                 cache = None if state is None \
                     else (state[key][0][li], state[key][1][li])
-                h, aux = self._layer(p, h, positions, moe, cache)
+                # the router aux is one of the recomputed layer's outputs
+                h, aux = _run(remat, self._layer, p, h, positions, moe, cache)
                 if aux is not None:
                     aux_total = aux_total + aux
         return self._final(h), aux_total
@@ -635,13 +676,35 @@ class HybridLM(_LM):
         sa = self.shared_attn
         return h + mlp_block(sa["mlp"], rms_norm(h, sa["ln2"], self.cfg.norm_eps))
 
+    def _shared_block(self, h: torch.Tensor, positions,
+                      kv=None) -> torch.Tensor:
+        """One application of the shared attention block (its K/V written
+        into ``kv`` when given)."""
+        sa = self.shared_attn
+        h = h + _attn_prefill(self.cfg, sa["attn"],
+                              rms_norm(h, sa["ln"], self.cfg.norm_eps),
+                              positions, 0, kv)
+        return self._mlp(h)
+
+    def _mamba_layer(self, p, h: torch.Tensor,
+                     st: dict | None = None) -> torch.Tensor:
+        """One Mamba2 layer; with ``st`` ({conv, ssm} of this layer) its
+        exact post-sequence state is written there."""
+        x = rms_norm(h, p["norm"], self.cfg.norm_eps)
+        if st is None:
+            return h + ssm_mod.mamba2_block(self.cfg, p["mamba"], x)
+        y, new = ssm_mod.mamba2_block(self.cfg, p["mamba"], x,
+                                      return_state=True)
+        st["conv"].copy_(new["conv"])
+        st["ssm"].copy_(new["ssm"])
+        return h + y
+
     def hidden(self, tokens: torch.Tensor, *,
                state: dict | None = None) -> torch.Tensor:
         """Final-normed hidden states of the chunked (parallel) pass. With
         ``state`` each Mamba2 layer's exact post-sequence {conv, ssm} state
         and each application point's K/V (``[:, :S]``) are written into it."""
-        cfg = self.cfg
-        sa, eps = self.shared_attn, cfg.norm_eps
+        remat = self._remat(state is not None)
         B, S = tokens.shape
         h = embed_tokens(self.embed, tokens)
         positions = _positions(B, S, tokens.device)
@@ -649,18 +712,11 @@ class HybridLM(_LM):
             if p is None:
                 kv = None if state is None \
                     else (state["attn_k"][i], state["attn_v"][i])
-                h = h + _attn_prefill(cfg, sa["attn"], rms_norm(h, sa["ln"], eps),
-                                      positions, 0, kv)
-                h = self._mlp(h)
+                h = _run(remat, self._shared_block, h, positions, kv)
                 continue
-            x = rms_norm(h, p["norm"], eps)
-            if state is None:
-                h = h + ssm_mod.mamba2_block(cfg, p["mamba"], x)
-                continue
-            y, st = ssm_mod.mamba2_block(cfg, p["mamba"], x, return_state=True)
-            state[key]["conv"][i] = st["conv"]
-            state[key]["ssm"][i] = st["ssm"]
-            h = h + y
+            st = None if state is None else {k: state[key][k][i]
+                                             for k in ("conv", "ssm")}
+            h = _run(remat, self._mamba_layer, p, h, st)
         return self._final(h)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -712,23 +768,31 @@ class RwkvLM(_LM):
         """Final-normed hidden states over ``tokens``, carrying ``state``
         (its token-shift inputs and WKV states are updated IN PLACE; ``None``
         starts from zeros and keeps nothing)."""
-        cfg, eps = self.cfg, self.cfg.norm_eps
+        remat = self._remat(state is not None)
         h = embed_tokens(self.embed, tokens)
         for li, p in enumerate(self.blocks):
-            kw = {} if state is None else dict(last_x=state["tm_x"][li],
-                                               state=state["wkv"][li])
-            out, tm_new, wkv = rwkv_mod.time_mix(
-                cfg, p["tm"], rms_norm(h, p["ln1"], eps), **kw)
-            h = h + out
-            out, cm_new = rwkv_mod.channel_mix(
-                cfg, p["cm"], rms_norm(h, p["ln2"], eps),
-                last_x=None if state is None else state["cm_x"][li])
-            h = h + out
-            if state is not None:
-                state["tm_x"][li].copy_(tm_new)          # stored in f32
-                state["cm_x"][li].copy_(cm_new)
-                state["wkv"][li].copy_(wkv)
+            h = _run(remat, self._block, p, h, state, li)
         return self._final(h)
+
+    def _block(self, p, h: torch.Tensor, state: dict | None,
+               li: int) -> torch.Tensor:
+        """One RWKV block (time mix, channel mix), carrying layer ``li`` of
+        ``state`` when given (written in place)."""
+        cfg, eps = self.cfg, self.cfg.norm_eps
+        kw = {} if state is None else dict(last_x=state["tm_x"][li],
+                                           state=state["wkv"][li])
+        out, tm_new, wkv = rwkv_mod.time_mix(
+            cfg, p["tm"], rms_norm(h, p["ln1"], eps), **kw)
+        h = h + out
+        out, cm_new = rwkv_mod.channel_mix(
+            cfg, p["cm"], rms_norm(h, p["ln2"], eps),
+            last_x=None if state is None else state["cm_x"][li])
+        h = h + out
+        if state is not None:
+            state["tm_x"][li].copy_(tm_new)              # stored in f32
+            state["cm_x"][li].copy_(cm_new)
+            state["wkv"][li].copy_(wkv)
+        return h
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self._head(self.hidden(tokens))
@@ -871,27 +935,15 @@ def _extras(cfg: ModelConfig, batch: dict) -> list[torch.Tensor]:
     return [] if key is None else [batch[key]]
 
 
-TRAINABLE_FAMILIES = DENSE_FAMILIES
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a family whose training is not ported yet."""
-    if cfg.family not in TRAINABLE_FAMILIES:
-        raise NotImplementedError(
-            f"repro_torch: training of the {cfg.family} family is not "
-            f"ported yet (trainable: {TRAINABLE_FAMILIES})")
-
-
 def make_trainable(cfg: ModelConfig, model: _LM) -> _LM:
-    """Let autograd record ``model``'s weights (in place; returns it). Only
-    the families whose training is ported: the others raise."""
-    check_trainable(cfg)
+    """Let autograd record ``model``'s weights (in place; returns it)."""
+    _check_family(cfg)
     return model.requires_grad_(True)
 
 
 def loss_fn(cfg: ModelConfig, model: _LM, batch: dict):
     """Next-token cross entropy, the same in serving checks and in the
-    train step (with grad, the dense layers are recomputed in the backward);
+    train step (with grad, every layer is recomputed in the backward);
     the moe family adds its router aux and MTP terms, as the reference does.
     rwkv's pass starts from a zero state, as the reference's training
     pass."""

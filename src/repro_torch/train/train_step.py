@@ -3,8 +3,8 @@
 
 ``make_train_step(cfg, opt_cfg)`` returns ``step(model, opt_state, batch)
 -> (model, opt_state, metrics)``: the loss and its gradients by autograd
-(each dense layer recomputed in the backward, attention through the flash
-kernel's autograd node), optional gradient accumulation over microbatches,
+(each layer of every family recomputed in the backward, attention through
+the flash kernel's autograd node), optional gradient accumulation over microbatches,
 then AdamW in place. There is no ``jit``: PyTorch runs eagerly, and the
 step's tensors stay on the model's device (``metrics`` are 0-d tensors; the
 caller decides when to read them back).
@@ -32,7 +32,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
     if grad_specs is not None:
         raise NotImplementedError("repro_torch: grad_specs needs the port of "
                                   "dist/ (ROADMAP.md, Queue 1)")
-    M.check_trainable(cfg)
     acc_dt = accum_dtype or torch.float32
 
     def grads_of(model, names, params, batch):
