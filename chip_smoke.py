@@ -76,7 +76,23 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    (``forward_flops``); a gradient check per family with attention at
    published width and a small depth (f32 and bf16, the planted fault
    failing it), every binding of ``attention_op`` swapped;
-11. prints the kernels' JSON line, the card line again, and last
+11. runs the paper's workflow layer on the card through
+   ``repro_torch.core.WorkflowExecutor`` and the ProactiveScheduler. The
+   quickstart's four-task graph (split, two FFTs, merge) over 64 MiB of
+   pinned f32 on 2 nodes mapped to cuda:0, its bodies torch ops on the
+   card, held to the same graph with CPU bodies (rtol 1e-4); then a
+   training epoch as a workflow: ``epoch_workflow`` for granite-3-2b at
+   published width, depth cut to 4, 4 steps of 8 x 4096 tokens in 2
+   microbatches, each step's batch loaded by 4 tasks as pinned host rows,
+   on 4 nodes mapped to cuda:0 and a store whose top tier is the card's
+   HBM, so the scheduler's prefetches stage batches to the card on a side
+   stream while a step computes. Its losses must equal ``train()``'s over
+   the same corpus, seed and optimizer (rtol 1e-5; bit-identity printed),
+   K1 must launch 16 times a step with no plain forward and no K2, bytes
+   must be prefetched and at least one batch must reach its step through
+   ``device_copy``; each task's io_wait and run, the workflow's and the
+   loop's walls, and the store's movement report are printed;
+12. prints the kernels' JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 With ``--sweep-decode-chunks`` it only times the decode kernel at the path's
@@ -1231,22 +1247,24 @@ def trace_granite(torch, kern) -> dict:
                for i in range(2)]
     router = Router(engines, store)
     cost = CostModel()
-    flash = kern["flash"]
+    flash, decode = kern["flash"], kern["decode"]
     flash.launches = 0
+    decode.launches = 0
     t0 = time.perf_counter()
     rep = TraceDriver(router, trace, cost=cost, warm=True,
                       max_history=max_seq).run()
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    k1 = flash.launches
+    k1, k2 = flash.launches, decode.launches
     s = rep.summary()
     prefills = sum(e.prefills for e in engines)
     print(f"  report: " + json.dumps(s), flush=True)
     print(f"  {prefills} real prefills (new {s['new_sessions']:.0f} + lost "
           f"{s['lost_reprefills']:.0f} + migrations {s['migrations']:.0f}), "
           f"{s['resumes']:.0f} resumes, {sum(e.parks for e in engines)} "
-          f"parks; flash_attention launches {k1} (40 x {prefills}); driver "
-          f"wall {wall:.2f}s", flush=True)
+          f"parks; flash_attention launches {k1} (40 x {prefills}); "
+          f"decode_attention launches {k2}; driver wall {wall:.2f}s",
+          flush=True)
     need(k1 > 0 and k1 == cfg.n_layers * prefills,
          f"trace: flash launches {k1} != 40 x {prefills}")
     need(prefills == s["new_sessions"] + s["lost_reprefills"]
@@ -1259,7 +1277,8 @@ def trace_granite(torch, kern) -> dict:
     print(f"  prefill seconds: measured (EMA per engine) {measured}; "
           f"CostModel at the mean prompt ({mean_prompt:.0f} tokens) "
           f"{cost.prefill_seconds(int(mean_prompt)):.4f}", flush=True)
-    res = {"report": s, "prefills": prefills, "launches": k1,
+    res = {"report": s, "prefills": prefills,
+           "launches": {"flash_attention": k1, "decode_attention": k2},
            "prefill_seconds_measured": measured,
            "prefill_seconds_model": cost.prefill_seconds(int(mean_prompt)),
            "driver_wall_s": wall,
@@ -2071,6 +2090,346 @@ def train_family(torch, kern, spec: dict) -> dict:
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------------------- workflows
+QUICKSTART_BYTES = 64 * 1024 * 1024   # the quickstart's @size of ``raw``
+# the quickstart's result on the card against the same graph with CPU bodies:
+# two f32 FFTs of 8 Mi points and sums over 4 Mi magnitudes, whose order of
+# summation differs between the two (read: ~1e-7)
+QUICKSTART_RTOL = 1e-4
+# the epoch workflow: granite-3-2b at published width, depth cut to 4 (as
+# the restart check), 4 steps of 8 x 4096 tokens in 2 microbatches, each
+# step's batch loaded as 4 shards of 2 rows
+EPOCH = dict(n_steps=4, n_dp=4, batch=8, seq=4096, microbatches=2)
+EPOCH_LAYERS = 4
+EPOCH_RTOL = 1e-5                     # its losses against train()'s
+
+
+def quickstart_workflow(C):
+    """The quickstart's four-task graph (``examples/quickstart.py``),
+    compiled for the port's default hardware (one H100 per node)."""
+    g = C.TaskGraph()
+    g.add_data("raw", size_bytes=C.size_hint(QUICKSTART_BYTES))
+    g.add_task("split", inputs=("raw",), outputs=("a", "b"),
+               hints=C.task(compute="linear", io_ratio=0.5))
+    g.add_task("fft_a", inputs=("a",), outputs=("fa",),
+               hints=C.task(compute="nlogn", io_ratio=1.0))
+    g.add_task("fft_b", inputs=("b",), outputs=("fb",),
+               hints=C.task(compute="nlogn", io_ratio=1.0))
+    g.add_task("merge", inputs=("fa", "fb"), outputs=("out",),
+               hints=C.task(compute="linear", io_ratio=0.5))
+    return C.compile_workflow(g)
+
+
+def quickstart_bodies(torch, dev) -> dict:
+    """The quickstart's bodies as torch ops on ``dev``: the split (after
+    one copy of ``raw`` to ``dev``), ``torch.fft.rfft`` and the merge's
+    sum."""
+    def split(raw):
+        r = raw.to(dev, non_blocking=True)
+        half = r.numel() // 2
+        return {"a": r[:half], "b": r[half:]}
+
+    return {
+        "split": split,
+        "fft_a": lambda a: {"fa": torch.fft.rfft(a).real.contiguous()},
+        "fft_b": lambda b: {"fb": torch.fft.rfft(b).real.contiguous()},
+        "merge": lambda fa, fb: {
+            "out": float(fa.abs().sum() + fb.abs().sum())},
+    }
+
+
+def run_quickstart(torch, raw, dev, device_of):
+    """(executor, result) of the quickstart graph through the proactive
+    scheduler on 2 nodes, its bodies on ``dev``."""
+    from repro_torch import core as C
+    wf = quickstart_workflow(C)
+    for tid, fn in quickstart_bodies(torch, dev).items():
+        wf.graph.tasks[tid].fn = fn
+    ex = C.WorkflowExecutor(wf, C.ProactiveScheduler(wf), n_nodes=2,
+                            device_of=device_of,
+                            inject_inputs={"raw": raw})
+    return ex, ex.run()
+
+
+def workflow_quickstart(torch, kern) -> dict:
+    """The quickstart's graph on the card: 64 MiB of seeded f32 as a pinned
+    host tensor, bodies on cuda:0, both nodes mapped to cuda:0; held to the
+    same graph run with CPU bodies. The card run is made twice: the first
+    pays cuFFT's plans and the workers' first CUDA calls, the second is
+    the one reported in full, with the kernels' launches counted (the
+    graph has no attention: both counts must stay 0)."""
+    import numpy as np
+    raw = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        QUICKSTART_BYTES // 4).astype(np.float32)).pin_memory()
+    _, cpu = run_quickstart(torch, raw, torch.device("cpu"), None)
+    dev = torch.device("cuda", 0)
+    flash, decode = kern["flash"], kern["decode"]
+    _, first = run_quickstart(torch, raw, dev, lambda node: dev)
+    flash.launches = 0
+    decode.launches = 0
+    ex, res = run_quickstart(torch, raw, dev, lambda node: dev)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": flash.launches,
+                "decode_attention": decode.launches}
+    need(first.outputs["out"] == res.outputs["out"],
+         f"workflow quickstart: two card runs give {first.outputs['out']} "
+         f"and {res.outputs['out']}")
+    out, want = res.outputs["out"], cpu.outputs["out"]
+    rel = abs(out - want) / abs(want)
+    recs = res.task_records
+    per_task = {t: (r["node"], round(r["io_wait"] * 1e3, 3),
+                    round(r["run"] * 1e3, 3)) for t, r in sorted(recs.items())}
+    split_at = recs["split"]["node"]
+    homes = {n: ex.store.stat(n).real_loc for n in ("a", "b")}
+    print(f"[workflow] quickstart (split, fft_a, fft_b, merge over "
+          f"{QUICKSTART_BYTES:,} B of pinned f32; ProactiveScheduler, 2 nodes"
+          f" on cuda:0): out {out!r} vs CPU bodies {want!r} (rel {rel:.3e},"
+          f" rtol {QUICKSTART_RTOL}); wall {res.wall_seconds * 1e3:.3f} ms "
+          f"(first card run {first.wall_seconds * 1e3:.3f} ms; CPU bodies "
+          f"{cpu.wall_seconds * 1e3:.3f} ms); io_wait "
+          f"{res.io_wait_total * 1e3:.3f} ms; split ran at node {split_at},"
+          f" its outputs at {homes}; launches {launches}; tasks "
+          f"{per_task} "
+          f"(node, io_wait ms, run ms) on {card_line()}", flush=True)
+    need(math.isfinite(out) and rel <= QUICKSTART_RTOL,
+         f"workflow quickstart: out {out} vs {want} (rel {rel:.3e})")
+    need(sorted(recs) == ["fft_a", "fft_b", "merge", "split"],
+         f"workflow quickstart: tasks that ran {sorted(recs)}")
+    need(all(v == split_at for v in homes.values()),
+         f"workflow quickstart: split ran at {split_at}, outputs at {homes}")
+    need(launches == {"flash_attention": 0, "decode_attention": 0},
+         f"workflow quickstart: attention kernels launched {launches}")
+    return {"out": out, "cpu_out": want, "rel": rel,
+            "wall_s": res.wall_seconds, "first_wall_s": first.wall_seconds,
+            "cpu_wall_s": cpu.wall_seconds, "launches": launches}
+
+
+def epoch_bodies(torch, cfg, opt_cfg, *, n_steps: int, n_dp: int,
+                 batch: int, seq: int, microbatches: int, device,
+                 record: dict) -> dict:
+    """Bodies of ``epoch_workflow``'s tasks. ``load_s_d`` yields rows
+    ``[d * batch / n_dp, (d + 1) * batch / n_dp)`` of step ``s``'s
+    ``SyntheticCorpus.batches(batch, seq)`` batch as one (rows, seq + 1)
+    int32 tensor (pinned on a CUDA run); ``step_s`` concatenates its parts
+    and runs ``make_train_step`` on the model and optimizer state it
+    received as ``params{s}``. ``record`` gets each step's loss, its K1
+    launches and how many of its parts arrived on the card."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.train.train_step import make_train_step
+    step_fn = make_train_step(cfg, opt_cfg, microbatches=microbatches)
+    rows = batch // n_dp
+    pin = device.type == "cuda"
+    for key in ("losses", "k1", "parts_on_card"):
+        record[key] = [None] * n_steps
+
+    def load(s: int, d: int):
+        def body(corpus):
+            b = next(corpus.batches(batch, seq, start_step=s))
+            x = np.concatenate([b["tokens"], b["labels"][:, -1:]], axis=1)
+            t = torch.from_numpy(np.ascontiguousarray(
+                x[d * rows:(d + 1) * rows]))
+            return {f"batch_{s}_{d}": t.pin_memory() if pin else t}
+        return body
+
+    def step(s: int):
+        def body(**inputs):
+            state = inputs[f"params{s}"]
+            parts = [inputs[f"batch_{s}_{d}"] for d in range(n_dp)]
+            record["parts_on_card"][s] = sum(p.is_cuda for p in parts)
+            x = torch.cat([p.to(device, non_blocking=True) for p in parts])
+            tokens = {"tokens": x[:, :-1].contiguous(),
+                      "labels": x[:, 1:].contiguous()}
+            n0 = flash_attention.launches
+            model, opt, metrics = step_fn(state["model"], state["opt"],
+                                          tokens)
+            record["losses"][s] = float(metrics["loss"])
+            record["k1"][s] = flash_attention.launches - n0
+            return {f"params{s + 1}": {"model": model, "opt": opt}}
+        return body
+
+    bodies = {f"step_{s}": step(s) for s in range(n_steps)}
+    bodies.update({f"load_{s}_{d}": load(s, d) for s in range(n_steps)
+                   for d in range(n_dp)})
+    return bodies
+
+
+def run_epoch_workflow(torch, cfg, opt_cfg, *, seed: int, device,
+                       record: dict, **epoch):
+    """(executor, result) of a training epoch as a workflow: the port's
+    ``epoch_workflow`` through the ProactiveScheduler on ``n_dp`` nodes,
+    all mapped to ``device``, on a store whose top tier is the device's
+    HBM, from the seeded init ``train()`` starts from."""
+    from repro_torch import core as C
+    from repro_torch.data.pipeline import SyntheticCorpus, epoch_workflow
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import init_opt_state
+    tokens = epoch["batch"] * epoch["seq"]
+    g = epoch_workflow(cfg, n_steps=epoch["n_steps"], n_dp=epoch["n_dp"],
+                       batch=epoch["batch"], seq=epoch["seq"],
+                       step_flops=6 * M.param_count(cfg) * tokens)
+    wf = C.compile_workflow(g)
+    for tid, fn in epoch_bodies(torch, cfg, opt_cfg, device=device,
+                                record=record, **epoch).items():
+        wf.graph.tasks[tid].fn = fn
+    model = M.make_trainable(cfg, M.init_params(cfg, seed, device=device))
+    opt = init_opt_state(opt_cfg, dict(model.named_parameters()))
+    ex = C.WorkflowExecutor(
+        wf, C.ProactiveScheduler(wf), n_nodes=epoch["n_dp"],
+        hierarchy=C.tiered_hierarchy(), device_of=lambda node: device,
+        inject_inputs={"corpus": SyntheticCorpus(cfg.vocab, seed=seed),
+                       "params0": {"model": model, "opt": opt}})
+    del model, opt
+    return ex, ex.run()
+
+
+def workflow_epoch(torch, kern) -> dict:
+    """A training epoch of granite-3-2b (published width, 4 layers) as a
+    workflow on the card, against ``train()`` over the same corpus, seed,
+    OptConfig and microbatches. The two run in the order loop, workflow,
+    workflow, loop, so that neither wall is read only first or only last;
+    each workflow run is held to the loop's losses and counted alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.train.loop import TrainConfig, train
+    from repro_torch.train.optimizer import OptConfig
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              n_layers=EPOCH_LAYERS)
+    n_steps, mb = EPOCH["n_steps"], EPOCH["microbatches"]
+    per_step = 2 * cfg.n_layers * mb
+    oc = OptConfig(warmup_steps=10, total_steps=n_steps)
+    dev = torch.device("cuda", 0)
+    flash, decode = kern["flash"], kern["decode"]
+    print(f"[workflow] epoch: {cfg.name} at published width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+          f"{cfg.hd}), depth cut to {cfg.n_layers}; {n_steps} steps of "
+          f"{EPOCH['batch']} x {EPOCH['seq']} tokens in {mb} microbatches, "
+          f"{EPOCH['n_dp']} loads a step; ProactiveScheduler, "
+          f"{EPOCH['n_dp']} nodes on cuda:0, tiered store (hbm top); order "
+          f"loop, workflow, workflow, loop", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run_loop():
+        marks = []
+        t0 = time.perf_counter()
+        loop = train(cfg, TrainConfig(steps=n_steps, batch=EPOCH["batch"],
+                                      seq=EPOCH["seq"], microbatches=mb,
+                                      seed=SEED), oc, device="cuda",
+                     on_step=lambda step, m: marks.append(
+                         time.perf_counter()))
+        wall = time.perf_counter() - t0
+        out = {"losses": loop.losses, "wall_s": loop.wall_seconds,
+               "init_wall_s": wall,
+               "step_s": [b - a for a, b in zip(marks, marks[1:])]}
+        del loop
+        free_cuda(torch)
+        return out
+
+    def run_workflow():
+        record: dict = {}
+        flash.launches = 0
+        decode.launches = 0
+        with _CountPlain(ref) as plain:
+            t0 = time.perf_counter()
+            ex, res = run_epoch_workflow(torch, cfg, oc, seed=SEED,
+                                         device=dev, record=record, **EPOCH)
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        recs = res.task_records
+        steps = [f"step_{s}" for s in range(n_steps)]
+        out = {"losses": record["losses"], "wall_s": res.wall_seconds,
+               "init_wall_s": wall, "k1": flash.launches,
+               "k2": decode.launches, "plain": plain.calls,
+               "k1_per_step": record["k1"],
+               "parts_on_card": record["parts_on_card"],
+               "step_s": [recs[t]["run"] for t in steps[1:]],
+               "step_io_wait_s": [recs[t]["io_wait"] for t in steps],
+               "step_run_s": [recs[t]["run"] for t in steps],
+               "io_wait_s": res.io_wait_total,
+               "bytes_prefetched": res.bytes_prefetched,
+               "locality_hit_rate": res.locality_hit_rate,
+               "prefetch": ex.prefetch.report(),
+               "tasks": {t: [r["node"], r["io_wait"], r["run"]]
+                         for t, r in sorted(recs.items())},
+               "movement": ex.store.movement_report()}
+        del ex, res
+        free_cuda(torch)
+        return out
+
+    loops = [run_loop()]
+    wfs = [run_workflow(), run_workflow()]
+    loops.append(run_loop())
+    want = loops[0]["losses"]
+    n_parts = n_steps * EPOCH["n_dp"]
+    for i, w in enumerate(wfs):
+        losses = w["losses"]
+        w["worst"] = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        w["taken"] = sum(w["parts_on_card"])
+        print(f"  workflow run {i + 1}: losses {losses} vs train() {want}: "
+              f"max rel {w['worst']:.3e} (rtol {EPOCH_RTOL}; "
+              f"{'bit-identical' if losses == want else 'not bit-identical'}"
+              f"); launches: flash_attention {w['k1']} ({w['k1_per_step']} "
+              f"per step, designed 2 x {cfg.n_layers} layers x {mb} "
+              f"microbatches = {per_step}); decode_attention {w['k2']}; "
+              f"plain attention forwards {w['plain']}; batch inputs taken "
+              f"through device_copy: {w['taken']} of {n_parts} "
+              f"({w['parts_on_card']} per step); prefetch {w['prefetch']}; "
+              f"bytes_prefetched {w['bytes_prefetched']:,.0f}; locality hit "
+              f"rate {w['locality_hit_rate']:.4f}", flush=True)
+    print(f"  wall (executor run / train(), without the model's init): "
+          f"loop {loops[0]['wall_s']:.4f} s, workflow {wfs[0]['wall_s']:.4f}"
+          f" s, workflow {wfs[1]['wall_s']:.4f} s, loop "
+          f"{loops[1]['wall_s']:.4f} s (with the init: "
+          f"{[round(r['init_wall_s'], 4) for r in (loops[0], *wfs, loops[1])]}"
+          f" s) for the same {n_steps} steps; steps 2-{n_steps}: workflow "
+          f"{[[round(x, 4) for x in w['step_s']] for w in wfs]} s (task run),"
+          f" loop {[[round(x, 4) for x in r['step_s']] for r in loops]} s "
+          f"(between on_step calls); peak memory "
+          f"{torch.cuda.max_memory_allocated():,} B on {card_line()}",
+          flush=True)
+    last = wfs[-1]
+    print(f"  run 2: io_wait total {last['io_wait_s']:.6f} s; step io_wait "
+          f"{[round(x, 6) for x in last['step_io_wait_s']]} s, run "
+          f"{[round(x, 4) for x in last['step_run_s']]} s", flush=True)
+    print("  run 2 tasks (node, io_wait s, run s): "
+          + json.dumps(last["tasks"]), flush=True)
+    print("  run 2 movement_report: " + json.dumps(last["movement"]),
+          flush=True)
+    need(loops[1]["losses"] == want,
+         f"workflow epoch: train() gave {want}, then {loops[1]['losses']}")
+    for i, w in enumerate(wfs, 1):
+        losses = w["losses"]
+        need(all(x is not None and math.isfinite(x) for x in losses),
+             f"workflow epoch run {i}: losses {losses}")
+        need(w["worst"] <= EPOCH_RTOL,
+             f"workflow epoch run {i}: losses {losses} vs train() {want}")
+        need(w["k1_per_step"] == [per_step] * n_steps
+             and w["k1"] == per_step * n_steps,
+             f"workflow epoch run {i}: K1 launches {w['k1']}, per step "
+             f"{w['k1_per_step']} != {per_step}")
+        need(w["k2"] == 0 and w["plain"] == 0,
+             f"workflow epoch run {i}: {w['k2']} decode launches, "
+             f"{w['plain']} plain forwards")
+        need(w["bytes_prefetched"] > 0,
+             f"workflow epoch run {i}: nothing was prefetched")
+        need(w["taken"] >= 1, f"workflow epoch run {i}: no batch input came "
+                              f"through device_copy")
+    return {"losses": last["losses"], "loop_losses": want,
+            "bit_identical": [w["losses"] == want for w in wfs],
+            "max_rel": max(w["worst"] for w in wfs),
+            "wall_s": [w["wall_s"] for w in wfs],
+            "loop_wall_s": [r["wall_s"] for r in loops],
+            "step_s": [w["step_s"] for w in wfs],
+            "loop_step_s": [r["step_s"] for r in loops],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "io_wait_s": last["io_wait_s"],
+            "parts_on_card": [w["taken"] for w in wfs],
+            "bytes_prefetched": last["bytes_prefetched"],
+            "device_hits": last["prefetch"]["device_hits"],
+            "launches": {"flash_attention": last["k1_per_step"][-1],
+                         "decode_attention": last["k2"]}}
+
+
 def ptxas_summary(lines: list[str]) -> list[str]:
     """ptxas' registers, spills and warnings per kernel instance."""
     args = {"f": "f32", "13__nv_bfloat16": "bf16"}
@@ -2186,8 +2545,7 @@ def main(argv: list[str]) -> int:
     t0 = time.perf_counter()
     trace = trace_granite(torch, kern)
     free_cuda(torch)
-    by_path["trace granite-3-2b"] = {"flash_attention": trace["launches"],
-                                     "decode_attention": 0}
+    by_path["trace granite-3-2b"] = trace["launches"]
     print(f"[trace] phase done in {time.perf_counter() - t0:.1f}s",
           flush=True)
     t0 = time.perf_counter()
@@ -2203,6 +2561,19 @@ def main(argv: list[str]) -> int:
         free_cuda(torch)
         print(f"[train] {spec['arch']} phase done in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    by_path["workflow quickstart"] = workflow_quickstart(
+        torch, kern)["launches"]
+    free_cuda(torch)
+    print(f"[workflow] quickstart phase done in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    by_path["workflow epoch granite-3-2b"] = workflow_epoch(
+        torch, kern)["launches"]
+    free_cuda(torch)
+    print(f"[workflow] epoch phase done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     src_of = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:127"),

@@ -616,11 +616,10 @@ class LocStore:
                              f"(want one of {DURABILITY_POLICIES})")
         self.n_nodes = n_nodes
         self.durability = durability
-        # optional ClusterTopology (not yet copied into this package; any
-        # object with its interface works): placement spreads across racks
-        # (failure domains), reads prefer rack-local replicas, and
-        # re-replication favors rack diversity. None or a *flat*
-        # topology keeps every decision identical to the flat model.
+        # optional repro_torch.core.topology.ClusterTopology: placement
+        # spreads across racks (failure domains), reads prefer rack-local
+        # replicas, and re-replication favors rack diversity. None or a
+        # *flat* topology keeps every decision identical to the flat model.
         self.topology = topology
         self._topo_real = (topology if topology is not None
                            and not topology.flat else None)

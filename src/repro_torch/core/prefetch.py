@@ -6,10 +6,20 @@ Two modes, one interface:
 * **host objects** (numpy arrays, bytes, pytrees): a background thread copies
   the object and registers the replica with the LocStore, so by the time the
   consumer task starts, ``store.get(name, at=node)`` is a local hit.
-* **torch tensors**: every tensor of the value is copied with
-  ``.to(device, non_blocking=True)`` (the copy is queued on the current
-  stream); the engine keeps the device copy and ``wait()`` blocks only if the
-  consumer arrives before the stage ran.
+* **torch tensors**: every host tensor of the value goes through
+  :func:`stage`, which :class:`~repro_torch.data.pipeline.PrefetchingLoader`
+  uses for its batches too: copied into pinned memory, then to the device
+  with ``non_blocking=True`` on a side stream of that device, with an event
+  recorded after the copy. :meth:`PrefetchEngine.device_copy` hands the
+  value out through :func:`take`, which makes the *calling* thread's
+  current stream wait on that event and marks each tensor as used by that
+  stream (``record_stream``), so the consumer never reads a copy before it
+  lands and the caching allocator does not reuse its memory while the
+  consumer reads it. The wait happens where the consumer takes the value,
+  because the executor's task bodies run on other threads than the stage.
+  Tensors already on the device pass through as they are; a tensor on
+  another card is refused. A failed stage raises in ``wait()``/``drain()``:
+  nothing is swallowed.
 
 Every prefetch targets a storage **tier** on the destination node: ``"hbm"``
 means device prefetch (the replica is promoted into device memory and, when a
@@ -28,41 +38,94 @@ from __future__ import annotations
 import dataclasses
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
 import torch
 
 from repro_torch.core.locstore import LocStore
 
-__all__ = ["PrefetchEngine"]
+__all__ = ["PrefetchEngine", "stage", "take"]
+
+
+def _tensors(value: Any) -> Iterator[torch.Tensor]:
+    """Every tensor in ``value`` (through dicts, lists, tuples and
+    dataclasses)."""
+    if isinstance(value, torch.Tensor):
+        yield value
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _tensors(v)
+    elif isinstance(value, (list, tuple)):
+        for v in value:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(value) and not isinstance(value, type):
+        for f in dataclasses.fields(value):
+            yield from _tensors(getattr(value, f.name))
 
 
 def _has_tensor(value: Any) -> bool:
-    if isinstance(value, torch.Tensor):
-        return True
-    if isinstance(value, dict):
-        return any(_has_tensor(v) for v in value.values())
-    if isinstance(value, (list, tuple)):
-        return any(_has_tensor(v) for v in value)
-    if dataclasses.is_dataclass(value) and not isinstance(value, type):
-        return any(_has_tensor(getattr(value, f.name))
-                   for f in dataclasses.fields(value))
-    return False
+    return next(_tensors(value), None) is not None
 
 
-def _to_device(value: Any, dev: torch.device) -> Any:
-    """``value`` with every tensor in it copied to ``dev`` (dicts, lists,
+def _map_tensors(value: Any, fn: Callable[[torch.Tensor], torch.Tensor]
+                 ) -> Any:
+    """``value`` with ``fn`` applied to every tensor in it (dicts, lists,
     tuples and dataclasses are rebuilt; anything else is kept as is)."""
     if isinstance(value, torch.Tensor):
-        return value.to(dev, non_blocking=True)
+        return fn(value)
     if isinstance(value, dict):
-        return {k: _to_device(v, dev) for k, v in value.items()}
+        return {k: _map_tensors(v, fn) for k, v in value.items()}
     if isinstance(value, (list, tuple)):
-        return type(value)(_to_device(v, dev) for v in value)
+        return type(value)(_map_tensors(v, fn) for v in value)
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
         return dataclasses.replace(value, **{
-            f.name: _to_device(getattr(value, f.name), dev)
+            f.name: _map_tensors(getattr(value, f.name), fn)
             for f in dataclasses.fields(value) if f.init})
+    return value
+
+
+def stage(value: Any, dev: torch.device, side: Any) -> tuple[Any, Any]:
+    """``value`` with its tensors copied to ``dev``, and the event recorded
+    after the copies (None off CUDA, where ``.to`` is synchronous). On CUDA
+    each host tensor is pinned and copied with ``non_blocking=True`` on the
+    stream ``side`` of ``dev``; hand the result to a consumer through
+    :func:`take`."""
+    if dev.type != "cuda":
+        return _map_tensors(value, lambda t: t.to(dev)), None
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        if t.device == dev:
+            return t
+        if t.device.type != "cpu":
+            raise ValueError(f"cannot stage a tensor on {t.device} to {dev}:"
+                             f" only host tensors are staged")
+        t = t if t.is_pinned() else t.pin_memory()
+        return t.to(dev, non_blocking=True)
+
+    with torch.cuda.stream(side):
+        out = _map_tensors(value, copy)
+        done = torch.cuda.Event()
+        done.record(side)
+    return out, done
+
+
+def take(value: Any, done: Any) -> Any:
+    """``value`` as :func:`stage` left it, made safe to read on the calling
+    thread's current stream: that stream waits on ``done``, and each CUDA
+    tensor of ``value`` is marked as used by it."""
+    if done is None:
+        return value
+    waited: dict[torch.device, Any] = {}
+    for t in _tensors(value):
+        if t.device.type != "cuda":
+            continue
+        stream = waited.get(t.device)
+        if stream is None:
+            stream = waited[t.device] = torch.cuda.current_stream(t.device)
+            stream.wait_event(done)
+        t.record_stream(stream)
     return value
 
 
@@ -76,7 +139,9 @@ class PrefetchEngine:
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
                                         thread_name_prefix="xflow-prefetch")
         self._inflight: dict[tuple[str, int], Future] = {}
-        self._device_copies: dict[tuple[str, int], Any] = {}
+        # (name, node) -> (device copy, event after its copy or None)
+        self._device_copies: dict[tuple[str, int], tuple[Any, Any]] = {}
+        self._side_streams: dict[torch.device, Any] = {}
         # consumer task -> replicas pinned do-not-evict on its behalf
         self._pins_for: dict[str, list[tuple[str, int]]] = {}
         self._lock = threading.Lock()
@@ -84,6 +149,7 @@ class PrefetchEngine:
         self.completed = 0
         self.skipped_read_once = 0
         self.bytes_prefetched = 0.0
+        self.device_hits = 0      # device copies handed to a consumer
         # failure hygiene: a dead node's in-flight handles, device copies and
         # pin records describe replicas that no longer exist — purge them on
         # the store's drop events so a later submit() re-stages instead of
@@ -188,14 +254,27 @@ class PrefetchEngine:
                 and _has_tensor(value):
             dev = self.device_of(dst)
             if dev is not None:
-                value = _to_device(value, dev)
+                dev = torch.device(dev)
+                side = self.side_stream(dev) if dev.type == "cuda" else None
+                value, done = stage(value, dev, side)
                 with self._lock:
-                    self._device_copies[(name, dst)] = value
+                    self._device_copies[(name, dst)] = (value, done)
         placement = self.store.replicate(name, [dst], tier=tier)
         with self._lock:
             self.completed += 1
             self.bytes_prefetched += float(placement.xattr.get("size", 0.0))
         return value
+
+    def side_stream(self, dev: torch.device) -> Any:
+        """This engine's side stream of the card ``dev`` (made on first
+        use): every stage to ``dev`` is queued on it."""
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        with self._lock:
+            side = self._side_streams.get(dev)
+            if side is None:
+                side = self._side_streams[dev] = torch.cuda.Stream(dev)
+        return side
 
     def wait(self, name: str, dst: int, timeout: float | None = None) -> bool:
         """Block until a previously-submitted prefetch lands; False if none."""
@@ -208,9 +287,16 @@ class PrefetchEngine:
         return True
 
     def device_copy(self, name: str, dst: int) -> Any | None:
-        """The device-resident replica, if device-level prefetch ran."""
+        """The device-resident replica, if device-level prefetch ran. The
+        calling thread's current stream waits for the staged copy, and each
+        of its tensors is marked as used by that stream."""
         with self._lock:
-            return self._device_copies.get((name, dst))
+            entry = self._device_copies.get((name, dst))
+            if entry is not None:
+                self.device_hits += 1
+        if entry is None:
+            return None
+        return take(*entry)
 
     def drain(self) -> None:
         with self._lock:
@@ -230,4 +316,5 @@ class PrefetchEngine:
                 "completed": float(self.completed),
                 "skipped_read_once": float(self.skipped_read_once),
                 "pins_held": float(pins),
+                "device_hits": float(self.device_hits),
                 "bytes_prefetched": self.bytes_prefetched}

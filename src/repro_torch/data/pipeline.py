@@ -12,10 +12,14 @@
   takes the batch, and each tensor is marked as used by that stream
   (``record_stream``), so a step never reads a batch before it lands and the
   caching allocator does not hand its memory to the side stream while the
-  step still reads it.
+  step still reads it. The staging is the prefetch engine's
+  (:func:`~repro_torch.core.prefetch.stage` and
+  :func:`~repro_torch.core.prefetch.take`).
 
-``epoch_workflow`` (a training epoch as a hinted TaskGraph) needs the port
-of ``core/dag.py`` and ``core/hints.py`` (ROADMAP.md, Queue 1).
+* :func:`epoch_workflow` — a training epoch as a hinted
+  :class:`~repro_torch.core.dag.TaskGraph` (per-step load tasks feeding the
+  step), copied from the reference, for the workflow executor and the
+  simulator.
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dag import TaskGraph
+from repro_torch.core.hints import Complexity, size_hint, task
+from repro_torch.core.prefetch import stage, take
 
 
 class SyntheticCorpus:
@@ -63,21 +71,9 @@ class SyntheticCorpus:
 
 def _placer(device: torch.device) -> Callable[[dict], Any]:
     """numpy batch -> (tensors on ``device``, the copy's event or None)."""
-    if device.type != "cuda":
-        return lambda b: ({k: torch.from_numpy(np.ascontiguousarray(v))
-                           .to(device) for k, v in b.items()}, None)
-    side = torch.cuda.Stream(device)
-
-    def place(b: dict):
-        host = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                for k, v in b.items()}
-        with torch.cuda.stream(side):
-            out = {k: v.to(device, non_blocking=True) for k, v in host.items()}
-            done = torch.cuda.Event()
-            done.record(side)
-        return out, done
-
-    return place
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    return lambda b: stage({k: torch.from_numpy(np.ascontiguousarray(v))
+                            for k, v in b.items()}, device, side)
 
 
 class PrefetchingLoader:
@@ -116,14 +112,7 @@ class PrefetchingLoader:
         item = self.q.get()
         if item is None:
             raise StopIteration
-        batch, done = item
-        if done is not None:
-            stream = torch.cuda.current_stream(
-                next(iter(batch.values())).device)
-            stream.wait_event(done)
-            for t in batch.values():
-                t.record_stream(stream)
-        return batch
+        return take(*item)
 
     def close(self) -> None:
         self._stop.set()
@@ -132,3 +121,28 @@ class PrefetchingLoader:
                 self.q.get_nowait()
         except queue.Empty:
             pass
+
+
+def epoch_workflow(cfg: ModelConfig, *, n_steps: int, n_dp: int,
+                   batch: int, seq: int, step_flops: float) -> TaskGraph:
+    """A training epoch as a hinted TaskGraph (consumed by core/scheduler)."""
+    g = TaskGraph()
+    batch_bytes = batch // n_dp * (seq + 1) * 4
+    g.add_data("corpus", size_bytes=size_hint(n_steps * n_dp * batch_bytes))
+    g.add_data("params0", size_bytes=size_hint(2e9))
+    prev = "params0"
+    for s in range(n_steps):
+        parts = []
+        for d in range(n_dp):
+            b = f"batch_{s}_{d}"
+            g.add_task(f"load_{s}_{d}", inputs=("corpus",), outputs=(b,),
+                       hints=task(compute="const",
+                                  io_ratio=1.0 / (n_steps * n_dp)))
+            parts.append(b)
+        out = f"params{s + 1}"
+        g.add_task(f"step_{s}", inputs=(prev, *parts), outputs=(out,),
+                   hints=task(procs=n_dp, io_ratio=1.0,
+                              compute=Complexity("const",
+                                                 flops_per_byte=step_flops)))
+        prev = out
+    return g

@@ -34,7 +34,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.train.optimizer", "repro_torch.train.train_step",
             "repro_torch.train.checkpoint", "repro_torch.train.loop",
             "repro_torch.data.pipeline",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train",
+            "repro_torch.core.hints", "repro_torch.core.dag",
+            "repro_torch.core.topology", "repro_torch.core.wfcompiler",
+            "repro_torch.core.scheduler", "repro_torch.core.simulator",
+            "repro_torch.core.executor", "repro_torch.core.workloads",
+            "repro_torch.analysis.lint",
+            "repro_torch.analysis.__main__"} <= set(mods)
     assert len(mods) > 20
     code = "\n".join([
         "import importlib, sys",
