@@ -92,7 +92,23 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    must be prefetched and at least one batch must reach its step through
    ``device_copy``; each task's io_wait and run, the workflow's and the
    loop's walls, and the store's movement report are printed;
-12. prints the kernels' JSON line, the card line again, and last
+12. runs ``repro_torch.dist`` on a one-rank NCCL group and a ("data",
+   "model") 1x1 DeviceMesh on cuda:0 (``dist_phase``): deepseek-v3-671b at
+   published width, 4 layers + MTP, B1 S1024, its loss and gradient once
+   unmeshed (the global MoE path) and once under ``sharding_rules(mesh)``
+   (the sharded path; K1 9 launches, K2 none), held bit for
+   bit by per-leaf fingerprints computed on the card (the router, norm and
+   attention leaves also whole on the host) or else by the bf16
+   gradient-check bound; granite-3-2b at published width, 4 layers, two
+   AdamW steps of 8 x 4096 tokens in 2 microbatches with ``grad_specs``
+   under the rules against the same steps unmeshed, bit for bit (K1 16 a
+   step, K2 none); ``wrap_grads`` of a gradient over the NCCL "data" group (mean +
+   new_err against g, and its device time and wire bytes beside a bf16
+   all-reduce of the same tree); that state saved in the reference's format
+   and restored with ``elastic_restore`` onto the mesh, bit for bit with
+   ``param_specs``' placements; and the host cost of the ``hint`` and
+   ``tp_divides`` sites in one granite-3-2b decode step (``hint_sites``);
+13. prints the kernels' JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 With ``--sweep-decode-chunks`` it only times the decode kernel at the path's
@@ -2430,6 +2446,422 @@ def workflow_epoch(torch, kern) -> dict:
                          "decode_attention": last["k2"]}}
 
 
+# ------------------------------------------------------------------- dist
+# the dist phase: one rank of NCCL on cuda:0, a ("data", "model") 1x1 mesh.
+# deepseek-v3 as in TRAIN_PHASES (published width, 4 layers: 3 dense + 1
+# MoE, + MTP; B1 S1024): its loss and gradient through the global MoE path
+# unmeshed and through the sharded path under the rules. granite-3-2b at
+# published width, depth 4 (as the restart check): two AdamW steps of
+# 8 x 4096 tokens in 2 microbatches with grad_specs under the rules, and the
+# same two steps unmeshed.
+DIST_DEEPSEEK = dict(arch="deepseek-v3-671b", layers=4, B=1, S=1024)
+DIST_GRANITE = dict(arch="granite-3-2b", layers=4, B=8, S=4096,
+                    microbatches=2, steps=2)
+# the reference's own tolerance for mean + err against x
+# (tests/test_compression.py)
+COMPRESS_TOL = 1e-6
+FP_CHUNK = 1 << 26                    # elements per fingerprint slice
+
+
+@contextlib.contextmanager
+def moe_paths():
+    """Counts calls of the MoE layer's global and sharded paths."""
+    from repro_torch.models import moe
+    calls = {"global": 0, "sharded": 0}
+    orig = (moe._moe_ffn_global, moe._moe_ffn_sharded)
+
+    def counted(name, fn):
+        def wrapper(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapper
+
+    moe._moe_ffn_global = counted("global", orig[0])
+    moe._moe_ffn_sharded = counted("sharded", orig[1])
+    try:
+        yield calls
+    finally:
+        moe._moe_ffn_global, moe._moe_ffn_sharded = orig
+
+
+def fingerprint(torch, g, seed: int) -> tuple[float, float, float]:
+    """(sum, sum of squares, a seeded random projection) of a gradient leaf,
+    in f64 on the card, slice by slice (a whole f64 copy of an expert leaf
+    would not fit): the same bits give the same three numbers."""
+    f = g.reshape(-1)
+    gen = torch.Generator(device=g.device)
+    gen.manual_seed(seed)
+    acc = torch.zeros(3, dtype=torch.float64, device=g.device)
+    for i in range(0, f.numel(), FP_CHUNK):
+        c = f[i:i + FP_CHUNK].double()
+        r = torch.randn(c.numel(), generator=gen, device=g.device,
+                        dtype=torch.float32)
+        acc += torch.stack([c.sum(), (c * c).sum(), (c * r).sum()])
+    return tuple(acc.tolist())
+
+
+def dist_deepseek(torch, kern, mesh) -> dict:
+    """deepseek-v3's loss and gradient twice, unmeshed (global MoE path)
+    and under sharding_rules(mesh) (sharded path, its collectives on NCCL).
+    The first gradient is fingerprinted per leaf and freed before the second
+    (one gradient peaked at 61.10 GiB); the router, norm and attention
+    leaves are also copied to the host whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.hints import sharding_rules
+    from repro_torch.models import model as M
+    spec = DIST_DEEPSEEK
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    flash, decode = kern["flash"], kern["decode"]
+    apps = attention_applications(cfg)
+    k1_design = 2 * apps + cfg.mtp_depth
+    print(f"[dist] {cfg.name} at published width, depth cut to "
+          f"{cfg.n_layers} (+ MTP), B{spec['B']} S{spec['S']}: loss and "
+          f"gradient unmeshed (global MoE path) and under the rules of the "
+          f"1x1 mesh (sharded path); K1 designed {k1_design} a gradient",
+          flush=True)
+    t0 = time.perf_counter()
+    model = M.make_trainable(cfg, M.init_params(cfg, SEED, device="cuda"))
+    batch = seeded_batch(torch, cfg, spec["B"], spec["S"])
+    names, params = zip(*model.named_parameters())
+    whole = [n for n in names if attention_norm_gate_leaf(n)
+             or n.endswith(".router")]
+    torch.cuda.synchronize()
+    print(f"  {M.param_count(cfg):,} params initialised in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+    def rules(meshed: bool):
+        return sharding_rules(mesh) if meshed else contextlib.nullcontext()
+
+    # one gradient each way first: the walls below time the gradient, not
+    # the first call's lazy set-up (the backward's GEMM handles and
+    # workspaces, imports)
+    for meshed in (False, True):
+        with rules(meshed):
+            loss, _ = M.loss_fn(cfg, model, batch)
+            torch.autograd.grad(loss, params)
+        del loss
+        free_cuda(torch)
+
+    def run(meshed: bool) -> dict:
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        flash.launches = 0
+        decode.launches = 0
+        t0 = time.perf_counter()
+        with moe_paths() as calls, rules(meshed):
+            loss, _ = M.loss_fn(cfg, model, batch)
+            grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = flash.launches, decode.launches
+        out = {"loss": loss.item(), "k1": k1, "k2": k2,
+               "calls": dict(calls), "wall_s": wall,
+               "peak": torch.cuda.max_memory_allocated(),
+               "fp": {n: fingerprint(torch, g, SEED + i)
+                      for i, (n, g) in enumerate(zip(names, grads))},
+               "host": {n: g.cpu() for n, g in zip(names, grads)
+                        if n in whole}}
+        del loss, grads
+        free_cuda(torch)
+        return out
+
+    a = run(False)
+    b = run(True)
+    for label, r in (("unmeshed", a), ("meshed", b)):
+        print(f"  {label}: loss {r['loss']!r}; K1 launches {r['k1']}, K2 "
+              f"{r['k2']}; MoE "
+              f"paths {r['calls']}; {r['wall_s']:.3f}s; peak "
+              f"{r['peak'] / 2**30:.2f} GiB", flush=True)
+    n_moe = 2 * (cfg.n_layers - cfg.first_dense_layers)   # + recompute
+    need(a["calls"] == {"global": n_moe, "sharded": 0},
+         f"dist deepseek unmeshed: MoE paths {a['calls']}")
+    need(b["calls"] == {"global": 0, "sharded": n_moe},
+         f"dist deepseek meshed: MoE paths {b['calls']} (the sharded path "
+         f"was not taken)")
+    need(a["k1"] == k1_design and b["k1"] == k1_design,
+         f"dist deepseek: K1 launches {a['k1']}, {b['k1']} != {k1_design}")
+    need(a["k2"] == 0 and b["k2"] == 0,
+         f"dist deepseek: decode launches {a['k2']}, {b['k2']}")
+    need(math.isfinite(a["loss"]) and math.isfinite(b["loss"]),
+         f"dist deepseek: losses {a['loss']}, {b['loss']}")
+    same_fp = [n for n in names if a["fp"][n] == b["fp"][n]]
+    same_host = [n for n in whole if torch.equal(a["host"][n],
+                                                 b["host"][n])]
+    bits = a["loss"] == b["loss"] and len(same_fp) == len(names) \
+        and len(same_host) == len(whole)
+    tol = GRAD_TOL["bfloat16"]
+    worst, worst_name = 0.0, None
+    if not bits:
+        # the bf16 gradient-check bound: each whole leaf's relative error
+        # norm; a fingerprinted leaf's from its projection (one draw) and
+        # its norm
+        for n in names:
+            if n in whole:
+                x, y = a["host"][n].float(), b["host"][n].float()
+                den = y.norm().item()
+                r = (x - y).norm().item() / den if den > 0 else 0.0
+            else:
+                (_, sq_a, p_a), (_, sq_b, p_b) = a["fp"][n], b["fp"][n]
+                nb = math.sqrt(sq_b)
+                r = max(abs(p_a - p_b), abs(math.sqrt(sq_a) - nb)) / nb \
+                    if nb > 0 else 0.0
+            if r > worst:
+                worst, worst_name = r, n
+    held = "bit-identical" if bits else \
+        f"within the bf16 gradient-check bound {tol}"
+    print(f"  meshed vs unmeshed: loss {'equal' if a['loss'] == b['loss'] else 'differs'}; "
+          f"fingerprints equal on {len(same_fp)}/{len(names)} leaves, whole "
+          f"leaves equal {len(same_host)}/{len(whole)}; "
+          + ("bit-identical" if bits else
+             f"worst relative error {worst:.3e} at {worst_name} "
+             f"(bound {tol})"), flush=True)
+    need(bits or worst <= tol,
+         f"dist deepseek: meshed gradient differs beyond {tol} ({worst} at "
+         f"{worst_name})")
+    del model, params, batch
+    return {"loss": [a["loss"], b["loss"]], "held": held,
+            "bit_identical": bits, "worst": worst,
+            "k1_launches": [a["k1"], b["k1"]], "moe_paths": b["calls"],
+            "grad_wall_s": [a["wall_s"], b["wall_s"]],
+            "peak_memory_bytes": max(a["peak"], b["peak"]),
+            "leaves": len(names), "whole_leaves": len(whole),
+            "launches": {"flash_attention": b["k1"],
+                         "decode_attention": b["k2"]}}
+
+
+def events_ms(torch, fn, reps: int = 5) -> float:
+    """Mean device milliseconds of ``fn`` between two CUDA events on the
+    current stream, after one warm-up (collectives are not captured in a
+    graph here)."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def dist_granite(torch, kern, mesh) -> dict:
+    """granite-3-2b (published width, 4 layers): two AdamW steps with
+    grad_specs under the rules of the 1x1 mesh and the same two steps
+    unmeshed, bit for bit; wrap_grads of a gradient over the NCCL "data"
+    group against a bf16 all-reduce of it; the state saved in the
+    reference's format and restored with elastic_restore onto the mesh."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import _bridge
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.dist import compression as comp
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.hints import sharding_rules
+    from repro_torch.launch.specs import params_specs_for
+    from repro_torch.models import model as M
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.elastic import elastic_restore
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+    spec = DIST_GRANITE
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    B, S, mb, steps = spec["B"], spec["S"], spec["microbatches"], \
+        spec["steps"]
+    oc = OptConfig(warmup_steps=10, total_steps=steps)
+    flash, decode = kern["flash"], kern["decode"]
+    per_step = 2 * cfg.n_layers * mb
+    print(f"[dist] {cfg.name} at published width, depth cut to "
+          f"{cfg.n_layers}: {steps} AdamW steps of {B} x {S} tokens in {mb} "
+          f"microbatches with grad_specs under the rules of the 1x1 mesh, "
+          f"and unmeshed; K1 designed {per_step} a step", flush=True)
+    it = SyntheticCorpus(cfg.vocab, seed=SEED).batches(B, S)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+               for _ in range(steps)]
+    specs = shd.named_param_specs(cfg, mesh)
+
+    def run(meshed: bool) -> dict:
+        model = M.make_trainable(cfg, M.init_params(cfg, SEED, device="cuda"))
+        opt = init_opt_state(oc, dict(model.named_parameters()))
+        step = make_train_step(cfg, oc, microbatches=mb,
+                               grad_specs=specs if meshed else None)
+        losses, k1, k2, walls = [], [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            flash.launches = 0
+            decode.launches = 0
+            t0 = time.perf_counter()
+            with (sharding_rules(mesh) if meshed
+                  else contextlib.nullcontext()):
+                _, opt, m = step(model, opt, b)
+            losses.append(m["loss"].item())
+            walls.append(time.perf_counter() - t0)
+            k1.append(flash.launches)
+            k2.append(decode.launches)
+        return {"model": model, "opt": opt, "losses": losses, "k1": k1,
+                "k2": k2, "walls": walls}
+
+    a = run(False)
+    b = run(True)
+    for label, r in (("unmeshed", a), ("grad_specs", b)):
+        print(f"  {label}: losses {r['losses']!r}; K1 per step {r['k1']}, "
+              f"K2 {r['k2']}; "
+              f"step walls {[round(w, 4) for w in r['walls']]} s", flush=True)
+    pa, pb = dict(a["model"].named_parameters()), \
+        dict(b["model"].named_parameters())
+    differ = [k for k in pa if not torch.equal(pa[k], pb[k])
+              or not torch.equal(a["opt"]["m"][k], b["opt"]["m"][k])
+              or not torch.equal(a["opt"]["v"][k], b["opt"]["v"][k])]
+    print(f"  grad_specs vs unmeshed: losses "
+          f"{'equal' if a['losses'] == b['losses'] else 'differ'}; params "
+          f"and moments bit-identical on {len(pa) - len(differ)}/{len(pa)} "
+          f"leaves", flush=True)
+    need(a["losses"] == b["losses"] and not differ,
+         f"dist granite: grad_specs steps differ from the unmeshed steps "
+         f"(losses {a['losses']} vs {b['losses']}; leaves {differ[:5]})")
+    need(all(math.isfinite(x) for x in b["losses"]),
+         f"dist granite: losses {b['losses']}")
+    need(a["k1"] == [per_step] * steps and b["k1"] == [per_step] * steps,
+         f"dist granite: K1 per step {a['k1']}, {b['k1']} != {per_step}")
+    need(a["k2"] == [0] * steps and b["k2"] == [0] * steps,
+         f"dist granite: decode launches per step {a['k2']}, {b['k2']}")
+    model, opt = b["model"], b["opt"]
+    del a, pa, pb
+    free_cuda(torch)
+
+    # wrap_grads over NCCL: one microbatch's gradient, accumulated in f32 as
+    # the train step accumulates it
+    micro = {k: v[:B // mb] for k, v in batches[0].items()}
+    names, params = zip(*model.named_parameters())
+    loss, _ = M.loss_fn(cfg, model, micro)
+    g16 = dict(zip(names, torch.autograd.grad(loss, params)))
+    del loss
+    g32 = {k: g.float() for k, g in g16.items()}
+    group = mesh.get_group("data")
+    with sharding_rules(mesh):
+        means, errs = comp.wrap_grads(g32, "data", None)
+        bad = [k for k in names if not torch.allclose(
+            means[k] + errs[k], g32[k], rtol=COMPRESS_TOL, atol=COMPRESS_TOL)]
+        worst = max(((means[k] + errs[k] - g32[k]).abs().max().item()
+                     for k in names))
+        t_comp = events_ms(torch, lambda: comp.wrap_grads(g32, "data", None))
+    copies = {k: g.clone() for k, g in g16.items()}
+
+    def all_reduce_bf16():
+        for t in copies.values():
+            dist.all_reduce(t, group=group)
+
+    t_ar = events_ms(torch, all_reduce_bf16)
+    ratios = {"bf16": comp.compression_ratio(g16),
+              "f32": comp.compression_ratio(g32)}
+    n_elems = sum(g.numel() for g in g16.values())
+    int8_bytes = sum(g.numel() + 4 for g in g16.values())
+    bf16_bytes = 2 * n_elems
+    card = card_line()
+    print(f"  wrap_grads over the NCCL \"data\" group ({dist.get_world_size(group)} "
+          f"rank): {len(names)} leaves, {n_elems:,} elements; mean + new_err "
+          f"against g + err: worst |diff| {worst:.3e} (rtol = atol = "
+          f"{COMPRESS_TOL}), {len(bad)} leaves outside; device time "
+          f"{t_comp:.4f} ms a call vs {t_ar:.4f} ms for the bf16 all-reduce "
+          f"of the same tree; wire bytes a rank: int8 + scales {int8_bytes:,}, "
+          f"bf16 {bf16_bytes:,}; compression_ratio {ratios['bf16']:.4f} "
+          f"(bf16 tree), {ratios['f32']:.4f} (f32 tree) on {card}",
+          flush=True)
+    need(not bad, f"dist granite: wrap_grads' mean + err differs from the "
+         f"gradient at {bad[:5]}")
+    del means, errs, g16, g32, copies, params
+    free_cuda(torch)
+
+    # the state in the reference's format, restored onto the mesh
+    tree = {"p": _bridge.to_reference(cfg, model),
+            "o": _bridge.opt_state_to_reference(cfg, model, opt)}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = ckpt.save(tree, d, steps)
+        t_save = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        p2, o2, step = elastic_restore(cfg, oc, d, mesh)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    want_spec = _bridge._flat(shd.param_specs(cfg, params_specs_for(cfg),
+                                              mesh))
+    got = _bridge._flat({"p": p2, "o": o2})
+    saved = _bridge._flat(tree)
+    wrong = []
+    for k, v in got.items():
+        leaf = k.split("/", 1)[1]
+        if k.startswith("o/m/") or k.startswith("o/v/"):
+            leaf = leaf.split("/", 1)[1]
+        pl = shd.placements(mesh, want_spec[leaf]) if k != "o/step" \
+            else shd.placements(mesh, shd.P())
+        if list(v.placements) != list(pl) or v.dtype != saved[k].dtype \
+                or not torch.equal(v.full_tensor(), saved[k]):
+            wrong.append(k)
+    print(f"  elastic restore: {len(got)} leaves ({size:,} B on disk) saved "
+          f"in {t_save:.3f}s, restored onto the mesh in "
+          f"{t_restore:.3f}s at step {step}; bit-identical with param_specs' "
+          f"placements on {len(got) - len(wrong)}/{len(got)}", flush=True)
+    need(step == steps and not wrong and set(got) == set(saved),
+         f"dist granite: elastic restore differs at {wrong[:5]} (step "
+         f"{step})")
+    del tree, p2, o2, model, opt
+    return {"losses": b["losses"], "step_walls_s": b["walls"],
+            "k1_per_step": b["k1"],
+            "wrap_grads_ms": t_comp, "bf16_all_reduce_ms": t_ar,
+            "wrap_grads_worst": worst, "int8_bytes": int8_bytes,
+            "bf16_bytes": bf16_bytes, "compression_ratio": ratios,
+            "ckpt_bytes": size, "save_s": t_save, "restore_s": t_restore,
+            "launches": {"flash_attention": b["k1"][-1],
+                         "decode_attention": b["k2"][-1]}}
+
+
+def dist_phase(torch, kern) -> dict:
+    """The dist phase on a one-rank NCCL group and a ("data", "model") 1x1
+    DeviceMesh on cuda:0; the group is destroyed when it ends."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(1, 1)
+    try:
+        need(dist.get_backend() == "nccl",
+             f"dist: backend {dist.get_backend()}")
+        # each mesh dim's communicator starts at its first collective: start
+        # them here, outside the timed runs
+        t0 = time.perf_counter()
+        for name in mesh.mesh_dim_names:
+            dist.all_reduce(torch.ones(1, device="cuda"),
+                            group=mesh.get_group(name))
+        torch.cuda.synchronize()
+        print(f"[dist] mesh {mesh} on a one-rank {dist.get_backend()} group; "
+              f"the first all_reduce of each mesh dim (its communicator's "
+              f"start) took {time.perf_counter() - t0:.3f}s", flush=True)
+        t0 = time.perf_counter()
+        deepseek = dist_deepseek(torch, kern, mesh)
+        free_cuda(torch)
+        print(f"[dist] deepseek done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        t0 = time.perf_counter()
+        granite = dist_granite(torch, kern, mesh)
+        free_cuda(torch)
+        print(f"[dist] granite done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    sites = hint_sites(torch)
+    free_cuda(torch)
+    res = {"deepseek": deepseek, "granite": granite, "hint_sites": sites}
+    print("  " + json.dumps(res), flush=True)
+    return res
+
+
 def ptxas_summary(lines: list[str]) -> list[str]:
     """ptxas' registers, spills and warnings per kernel instance."""
     args = {"f": "f32", "13__nv_bfloat16": "bf16"}
@@ -2447,6 +2879,55 @@ def ptxas_summary(lines: list[str]) -> list[str]:
         elif name and ("Used" in ln or "spill" in ln):
             out.append(f"{name}: {ln.replace('ptxas info    : ', '')}")
     return out
+
+
+def hint_sites(torch) -> dict:
+    """Host cost of the hint sites in one granite-3-2b decode step
+    (published width, 40 layers, B 8): the calls of ``hint`` and
+    ``tp_divides`` counted at the model's bindings over one step, times the
+    host cost of one call of each, timed in a loop here."""
+    import timeit
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import hints as H
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    cfg = get_config("granite-3-2b")
+    model = M.init_params(cfg, SEED, device="cuda")
+    state = M.init_decode_state(cfg, 8, 2048, device="cuda")
+    tok = torch.zeros((8, 1), dtype=torch.int32, device="cuda")
+    counts = {"hint": 0, "tp_divides": 0}
+
+    def counted(name, fn):
+        def wrapper(*a):
+            counts[name] += 1
+            return fn(*a)
+        return wrapper
+
+    orig = {m: (m.hint, m.tp_divides) for m in (M, layers)}
+    for m, (h, t) in orig.items():
+        m.hint, m.tp_divides = counted("hint", h), counted("tp_divides", t)
+    try:
+        with torch.no_grad():
+            M.decode_step(cfg, model, state, tok)
+        torch.cuda.synchronize()
+    finally:
+        for m, (h, t) in orig.items():
+            m.hint, m.tp_divides = h, t
+    x = torch.zeros((8, 1, cfg.d_model), device="cuda")
+    n = 200_000
+    ns_hint = 1e9 * timeit.timeit(lambda: H.hint(x, "dp", None, "tp"),
+                                  number=n) / n
+    ns_tp = 1e9 * timeit.timeit(lambda: H.tp_divides(cfg.n_kv_heads),
+                                number=n) / n
+    us = 1e-3 * (counts["hint"] * ns_hint + counts["tp_divides"] * ns_tp)
+    print(f"[dist] hint sites of one {cfg.name} decode step (B 8, outside "
+          f"rules): {counts['hint']} hint and {counts['tp_divides']} "
+          f"tp_divides calls; {ns_hint:.1f} ns and {ns_tp:.1f} ns a call on "
+          f"this host: {us:.1f} us a step", flush=True)
+    del model, state
+    return {"calls": counts, "ns_hint": ns_hint, "ns_tp_divides": ns_tp,
+            "us_per_step": us}
 
 
 def main(argv: list[str]) -> int:
@@ -2574,6 +3055,12 @@ def main(argv: list[str]) -> int:
     free_cuda(torch)
     print(f"[workflow] epoch phase done in {time.perf_counter() - t0:.1f}s",
           flush=True)
+    t0 = time.perf_counter()
+    dist_res = dist_phase(torch, kern)
+    by_path["dist deepseek-v3-671b"] = dist_res["deepseek"]["launches"]
+    by_path["dist granite-3-2b"] = dist_res["granite"]["launches"]
+    free_cuda(torch)
+    print(f"[dist] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
 
     src_of = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:127"),

@@ -2,9 +2,11 @@
 
 Plain functions on tensors, one per reference primitive in
 ``repro.models.layers``, with the same shapes and dtype policy: params and
-activations in ``cfg.dtype``, softmax/norm statistics in f32. Sharding hints
-are not part of the port yet (the reference's ``hint`` is a no-op without a
-mesh).
+activations in ``cfg.dtype``, softmax/norm statistics in f32. The
+reference's sharding hints sit at the same sites (``dist.hints.hint``: the
+argument itself outside ``sharding_rules``; under rules a DTensor is
+redistributed and a plain tensor passes through); at the kernel ops the
+kernel's inputs and output are hinted, never inside the wrapper.
 
 ``attention`` and ``decode_attention`` are the reference's XLA spellings
 (chunked GQA, grouped decode), kept for parity tests; the model itself, and
@@ -19,6 +21,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.hints import hint, tp_divides
 from repro_torch.kernels.ops import attention_op
 
 NEG_INF = -1e30
@@ -118,16 +121,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    if not tp_divides(Hq):
+        # heads can't shard on model -> q shards on SEQ ('sq'): one
+        # seq-sharded piece instead of a chunk loop that re-cuts it
+        q_chunk = max(q_chunk, Sq)
+    q = hint(q, "dp", "sq", "tp", None)
     if G > 1:
         k = torch.repeat_interleave(k, G, dim=2)
         v = torch.repeat_interleave(v, G, dim=2)
+    k = hint(k, "dp", "sp", "tp", None)
+    v = hint(v, "dp", "sp", "tp", None)
 
     def chunk_attn(q_c: torch.Tensor, qp_c: torch.Tensor) -> torch.Tensor:
         s = torch.einsum("bchd,bshd->bhcs", q_c.float(), k.float()) * scale
+        s = hint(s, "dp", "tp", "sq", None)
         s = s + _mask_bias(qp_c, k_pos, causal=causal,
                            window=window)[:, None, :, :]
         p = torch.softmax(s, dim=-1)
-        return torch.einsum("bhcs,bshd->bchd", p.to(v.dtype), v)
+        return hint(torch.einsum("bhcs,bshd->bchd", p.to(v.dtype), v),
+                    "dp", "sq", "tp", None)
 
     outs = [chunk_attn(q[:, i:i + q_chunk], q_pos[:, i:i + q_chunk])
             for i in range(0, Sq, q_chunk)]
@@ -151,8 +163,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     G = Hq // Hkv
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
     k_pos = torch.arange(S, device=q.device)[None, :]
+    kv_tp = tp_divides(Hkv)   # can the STORED cache shard its kv heads?
     qg = q.reshape(B, Hkv, G, hd)
+    if kv_tp:                 # heads-local: cache kv -> model
+        qg = hint(qg, "dp", "tp", None, None)
+        k_cache = hint(k_cache, "dp", "sp", "tp", None)
+        v_cache = hint(v_cache, "dp", "sp", "tp", None)
+    else:                     # the cache lives seq-sharded
+        qg = hint(qg, "dp", None, None, None)
+        k_cache = hint(k_cache, "dp", "seq", None, None)
+        v_cache = hint(v_cache, "dp", "seq", None, None)
     s = torch.einsum("bhgd,bshd->bhgs", qg.float(), k_cache.float()) * scale
+    s = hint(s, "dp", "tp", None, None) if kv_tp \
+        else hint(s, "dp", None, None, "seq")
     ok = k_pos <= q_pos[:, None]
     if window > 0:
         ok &= q_pos[:, None] - k_pos < window
@@ -197,8 +220,11 @@ def cross_attend(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     no rope and no mask (the reference's zero positions with
     ``causal=False``), through the flash-attention op."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, dims.n_heads, dims.hd)
-    o = attention_op(q, k, v, causal=False)
+    q = hint((x @ p["wq"]).reshape(B, S, dims.n_heads, dims.hd),
+             "dp", "sq", "tp", None)
+    k = hint(k, "dp", "sp", "tp", None)
+    v = hint(v, "dp", "sp", "tp", None)
+    o = hint(attention_op(q, k, v, causal=False), "dp", "sq", "tp", None)
     return o.reshape(B, S, dims.n_heads * dims.hd) @ p["wo"]
 
 
@@ -223,9 +249,11 @@ def init_mlp(gen: torch.Generator | None, d: int, d_ff: int, dtype,
 def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
     """Gated SiLU MLP when ``w3`` is present, else tanh-GELU (the reference's
     ``jax.nn.gelu`` default)."""
+    roles = ("dp",) + (None,) * (x.ndim - 2) + ("tp",)
     if "w3" in p:
-        return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
-    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+        h = hint(F.silu(x @ p["w1"]) * (x @ p["w3"]), *roles)
+        return h @ p["w2"]
+    return hint(F.gelu(x @ p["w1"], approximate="tanh"), *roles) @ p["w2"]
 
 
 # ------------------------------------------------------------------ embedding

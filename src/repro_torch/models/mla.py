@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.hints import hint
 from repro_torch.kernels.ops import attention_op
 from repro_torch.models.layers import (NEG_INF, apply_rope, cache_update,
                                        init_linear, rms_norm)
@@ -84,8 +85,12 @@ def mla_attention(cfg: ModelConfig, p, x: torch.Tensor,
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     v = F.pad(v, (0, m.qk_head_dim - m.v_head_dim))      # dv -> dqk columns
-    o = attention_op(q, k, v, causal=True,
-                     softmax_scale=m.qk_head_dim ** -0.5)
+    q = hint(q, "dp", "sq", "tp", None)
+    k = hint(k, "dp", "sp", "tp", None)
+    v = hint(v, "dp", "sp", "tp", None)
+    o = hint(attention_op(q, k, v, causal=True,
+                          softmax_scale=m.qk_head_dim ** -0.5),
+             "dp", "sq", "tp", None)
     return o[..., :m.v_head_dim].reshape(B, S, H * m.v_head_dim) @ p["wo"]
 
 

@@ -69,6 +69,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.hints import hint, tp_divides
 from repro_torch.kernels.ops import attention_op, decode_attention_op
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -195,7 +196,11 @@ def _attn_prefill(cfg: ModelConfig, attn, hn: torch.Tensor,
     if kv is not None:
         kv[0][:, :S] = k
         kv[1][:, :S] = v
-    o = attention_op(q, k, v, causal=True, window=window)
+    q = hint(q, "dp", "sq", "tp", None)
+    k = hint(k, "dp", "sp", "tp", None)
+    v = hint(v, "dp", "sp", "tp", None)
+    o = hint(attention_op(q, k, v, causal=True, window=window),
+             "dp", "sq", "tp", None)
     return o.reshape(B, S, -1) @ attn["wo"]
 
 
@@ -211,8 +216,20 @@ def _attn_decode(cfg: ModelConfig, attn, hn: torch.Tensor, ck: torch.Tensor,
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     cache_update(ck, cv, k, v, pos)
-    o = decode_attention_op(q[:, 0], ck, cv, lengths, window=window)
+    q, ck, cv = _hint_decode(q[:, 0], ck, cv)
+    o = decode_attention_op(q, ck, cv, lengths, window=window)
     return o.reshape(B, 1, -1) @ attn["wo"]
+
+
+def _hint_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor):
+    """The decode kernel's inputs hinted as the reference's grouped decode
+    attention hints them: heads-local when the cache's kv heads divide the
+    model axis, else the cache seq-sharded."""
+    if tp_divides(ck.shape[2]):
+        return (hint(q, "dp", "tp", None), hint(ck, "dp", "sp", "tp", None),
+                hint(cv, "dp", "sp", "tp", None))
+    return (hint(q, "dp", None, None), hint(ck, "dp", "seq", None, None),
+            hint(cv, "dp", "seq", None, None))
 
 
 def _dense_layer(cfg: ModelConfig, p, h: torch.Tensor, positions,
@@ -221,7 +238,14 @@ def _dense_layer(cfg: ModelConfig, p, h: torch.Tensor, positions,
     ``_gqa_layer``)."""
     h = h + _attn_prefill(cfg, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
                           positions, window, kv)
-    return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+    h = hint(h, "dp", "sp_seq", None)     # Megatron-SP residual (opt-in)
+    h = h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+    return hint(h, "dp", "sp_seq", None)
+
+
+def _embed(embed, tokens: torch.Tensor) -> torch.Tensor:
+    h = embed_tokens(embed, tokens)
+    return hint(h, "dp", *([None] * (h.ndim - 1)))
 
 
 def _dense_layer_decode(cfg: ModelConfig, p, h: torch.Tensor, ck, cv, pos,
@@ -239,6 +263,7 @@ def _cross_decode(cfg: ModelConfig, attn, hx: torch.Tensor, xk: torch.Tensor,
     B = hx.shape[0]
     q = (hx @ attn["wq"]).reshape(B, cfg.n_heads, cfg.hd)
     full = torch.full((B,), xk.shape[1], dtype=torch.int32, device=hx.device)
+    q, xk, xv = _hint_decode(q, xk, xv)
     o = decode_attention_op(q, xk, xv, full)
     return o.reshape(B, 1, -1) @ attn["wo"]
 
@@ -267,7 +292,7 @@ class _LM(nn.Module):
         return rms_norm(h, self.final_norm, self.cfg.norm_eps)
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
-        logits = unembed(self.embed, h)
+        logits = hint(unembed(self.embed, h), "dp", None, "tp")
         return logits if self.logit_mask is None else logits + self.logit_mask
 
     def _check_prompt(self, S: int, max_seq: int) -> None:
@@ -304,7 +329,7 @@ class DenseLM(_LM):
         With ``kv_out=(ck, cv)`` each layer's K/V is written into
         ``ck[l, :, :S]`` / ``cv[l, :, :S]``."""
         B, S = tokens.shape
-        h = embed_tokens(self.embed, tokens)
+        h = _embed(self.embed, tokens)
         positions = _positions(B, S, tokens.device)
         remat = self._remat(kv_out is not None)
         for li, (p, w) in enumerate(zip(self.blocks, self.windows)):
@@ -328,7 +353,7 @@ class DenseLM(_LM):
         pos = state["pos"]                                      # (B,)
         ck, cv = state["k"], state["v"]
         lengths = (pos + 1).to(torch.int32)
-        h = embed_tokens(self.embed, tokens)                    # (B, 1, d)
+        h = _embed(self.embed, tokens)                          # (B, 1, d)
         for li, (p, w) in enumerate(zip(self.blocks, self.windows)):
             h = _dense_layer_decode(self.cfg, p, h, ck[li], cv[li], pos,
                                     lengths, w)
@@ -356,7 +381,10 @@ class EncDecLM(_LM):
         q = (hn @ p["attn"]["wq"]).reshape(B, F, cfg.n_heads, cfg.hd)
         k = (hn @ p["attn"]["wk"]).reshape(B, F, cfg.n_kv_heads, cfg.hd)
         v = (hn @ p["attn"]["wv"]).reshape(B, F, cfg.n_kv_heads, cfg.hd)
-        o = attention_op(q, k, v, causal=False)
+        q = hint(q, "dp", "sq", "tp", None)
+        k = hint(k, "dp", "sp", "tp", None)
+        v = hint(v, "dp", "sp", "tp", None)
+        o = hint(attention_op(q, k, v, causal=False), "dp", "sq", "tp", None)
         h = h + o.reshape(B, F, -1) @ p["attn"]["wo"]
         return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
 
@@ -402,7 +430,7 @@ class EncDecLM(_LM):
         remat = self._remat(state is not None)
         enc_out = self.encode(frames, remat=remat)
         B, S = tokens.shape
-        h = embed_tokens(self.embed, tokens)
+        h = _embed(self.embed, tokens)
         positions = _positions(B, S, tokens.device)
         for li, p in enumerate(self.dec_blocks):
             kv = xkv = None
@@ -431,7 +459,7 @@ class EncDecLM(_LM):
         cfg = self.cfg
         pos = state["pos"]
         lengths = (pos + 1).to(torch.int32)
-        h = embed_tokens(self.embed, tokens)
+        h = _embed(self.embed, tokens)
         for li, p in enumerate(self.dec_blocks):
             h = h + _attn_decode(cfg, p["attn"],
                                  rms_norm(h, p["ln1"], cfg.norm_eps),
@@ -487,7 +515,7 @@ class VisionLM(_LM):
         # promotes them at the reference's ``patches @ wk``
         patches = patches.to(self.final_norm.dtype)
         B, S = tokens.shape
-        h = embed_tokens(self.embed, tokens)
+        h = _embed(self.embed, tokens)
         positions = _positions(B, S, tokens.device)
         for g, (group, xp) in enumerate(zip(self.self_groups,
                                             self.cross_blocks)):
@@ -517,7 +545,7 @@ class VisionLM(_LM):
         pos = state["pos"]
         lengths = (pos + 1).to(torch.int32)
         ck, cv = state["k"], state["v"]
-        h = embed_tokens(self.embed, tokens)
+        h = _embed(self.embed, tokens)
         for g, (group, xp) in enumerate(zip(self.self_groups,
                                             self.cross_blocks)):
             for s, p in enumerate(group):
@@ -573,13 +601,14 @@ class MoeLM(_LM):
     def _layer(self, p, h, positions, moe: bool, cache=None):
         h = h + self._attn(p["attn"], rms_norm(h, p["ln1"], self.cfg.norm_eps),
                            positions, cache)
-        return self._ffn(p, h, moe)
+        h, aux = self._ffn(p, hint(h, "dp", "sp_seq", None), moe)
+        return hint(h, "dp", "sp_seq", None), aux
 
     def hidden(self, tokens: torch.Tensor, *, state: dict | None = None):
         """(final-normed hidden states, summed router aux loss)."""
         B, S = tokens.shape
         remat = self._remat(state is not None)
-        h = embed_tokens(self.embed, tokens)
+        h = _embed(self.embed, tokens)
         positions = _positions(B, S, tokens.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for key, blocks, moe in (("dense_cache", self.dense_blocks, False),
@@ -603,7 +632,7 @@ class MoeLM(_LM):
         metrics = {"loss": loss, "xent": xent, "aux": aux}
         if cfg.mtp_depth:
             m = self.mtp
-            emb_next = embed_tokens(self.embed, labels.clamp(min=0))
+            emb_next = _embed(self.embed, labels.clamp(min=0))
             z = torch.cat([rms_norm(h, m["norm"], cfg.norm_eps), emb_next],
                           dim=-1) @ m["proj"]
             B, S = tokens.shape
@@ -628,7 +657,7 @@ class MoeLM(_LM):
         cfg = self.cfg
         pos = state["pos"]
         lengths = (pos + 1).to(torch.int32)
-        h = embed_tokens(self.embed, tokens)
+        h = _embed(self.embed, tokens)
         for key, blocks, moe in (("dense_cache", self.dense_blocks, False),
                                  ("moe_cache", self.moe_blocks, True)):
             for li, p in enumerate(blocks):
@@ -706,7 +735,7 @@ class HybridLM(_LM):
         and each application point's K/V (``[:, :S]``) are written into it."""
         remat = self._remat(state is not None)
         B, S = tokens.shape
-        h = embed_tokens(self.embed, tokens)
+        h = _embed(self.embed, tokens)
         positions = _positions(B, S, tokens.device)
         for p, key, i in self._layers():
             if p is None:
@@ -735,7 +764,7 @@ class HybridLM(_LM):
         sa, eps = self.shared_attn, cfg.norm_eps
         pos = state["pos"]
         lengths = (pos + 1).to(torch.int32)
-        h = embed_tokens(self.embed, tokens)
+        h = _embed(self.embed, tokens)
         for p, key, i in self._layers():
             if p is None:
                 h = h + _attn_decode(cfg, sa["attn"], rms_norm(h, sa["ln"], eps),
@@ -769,7 +798,7 @@ class RwkvLM(_LM):
         (its token-shift inputs and WKV states are updated IN PLACE; ``None``
         starts from zeros and keeps nothing)."""
         remat = self._remat(state is not None)
-        h = embed_tokens(self.embed, tokens)
+        h = _embed(self.embed, tokens)
         for li, p in enumerate(self.blocks):
             h = _run(remat, self._block, p, h, state, li)
         return self._final(h)

@@ -1,5 +1,5 @@
 """Mixture-of-Experts layer — capacity-based token-choice dispatch, the port
-of ``repro.models.moe`` (its single-device global path).
+of ``repro.models.moe``: its global path and its sharded path.
 
 Covers both MoE architectures:
   * deepseek-v3-671b: 1 shared expert + 256 routed, top-8, softmax router
@@ -9,9 +9,12 @@ Covers both MoE architectures:
 Dispatch is the GShard/Switch capacity scheme as the reference spells it:
 top-k per token, position within its expert from a stable sort of the flat
 expert ids, a capacity drop, scatter-add into ``(E * C, d)``, three expert
-products, then gather back and weight. The reference's sharded path (local
-dispatch per mesh shard, ``moe.py:138``) waits for the port's ``dist/``; with
-no mesh the reference runs the global path too.
+products, then gather back and weight. Under ``dist.hints.sharding_rules``
+with a DeviceMesh, :func:`moe_ffn` takes :func:`_moe_ffn_sharded`, the
+reference's shard_map path: each rank dispatches its own tokens to its own
+experts with a per-shard capacity, gathers its experts' FSDP shards over
+"data" and sums the experts' outputs over "model"; unmeshed, the global
+path runs, as in the reference.
 
 Semantics kept from JAX: ``jax.lax.top_k`` puts the lower index first among
 equal probabilities — a stable descending sort does the same; the drop sink
@@ -25,9 +28,14 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import hints as hint_rules
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.hints import hint
 from repro_torch.models.layers import init_linear, uniform_scale_init
 
 
@@ -55,20 +63,26 @@ def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
 
 def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out (B, S, d), router aux loss scalar f32). The port
-    has no mesh yet, so this is always the global path."""
+    """x: (B, S, d) -> (out (B, S, d), router aux loss scalar f32).
+
+    Under an active mesh (``dist.hints.sharding_rules`` with a DeviceMesh)
+    the routed experts run through :func:`_moe_ffn_sharded`; the global path
+    below runs unmeshed and is the oracle of the tests."""
+    r = hint_rules.get_rules()
+    if r is not None and r.get("mesh") is not None \
+            and not isinstance(r["mesh"], shd.AbstractMesh):
+        return _moe_ffn_sharded(cfg, p, x, r)
     return _moe_ffn_global(cfg, p, x)
 
 
-def _moe_ffn_global(cfg: ModelConfig, p, x: torch.Tensor
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    B, S, d = x.shape
-    T = B * S
+def _route(cfg: ModelConfig, p, xt: torch.Tensor):
+    """The router of both paths, for tokens ``xt`` (T, d): renormalised
+    top-k weights ``topw`` (T, k), flat expert ids ``e_flat`` (T*k,), each
+    assignment's position inside its expert ``pos_flat`` (T*k,), and the
+    load-balancing aux loss (Switch: E * sum_e f_e * P_e), all in f32."""
+    T = xt.shape[0]
     E, k = cfg.n_experts, cfg.experts_per_token
-    C = _capacity(cfg, T)
-    xt = x.reshape(T, d)
-
-    logits = xt.float() @ p["router"]                          # (T, E) f32
+    logits = xt.float() @ p["router"].float()                  # (T, E) f32
     probs = torch.softmax(logits, dim=-1)
     topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topw, topi = topw[:, :k], topi[:, :k]                      # (T, k)
@@ -80,8 +94,22 @@ def _moe_ffn_global(cfg: ModelConfig, p, x: torch.Tensor
     order = torch.argsort(e_flat, stable=True)
     counts = torch.bincount(e_flat, minlength=E)
     seg_start = torch.cumsum(counts, 0) - counts
-    pos_sorted = torch.arange(T * k, device=x.device) - seg_start[e_flat[order]]
+    pos_sorted = torch.arange(T * k, device=xt.device) - seg_start[e_flat[order]]
     pos_flat = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+
+    frac = counts.float() / max(T * k, 1)
+    aux = E * torch.sum(frac * probs.mean(0)) * cfg.router_aux_weight
+    return topw, e_flat, pos_flat, aux
+
+
+def _moe_ffn_global(cfg: ModelConfig, p, x: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    B, S, d = x.shape
+    T = B * S
+    E, k = cfg.n_experts, cfg.experts_per_token
+    C = _capacity(cfg, T)
+    xt = x.reshape(T, d)
+    topw, e_flat, pos_flat, aux = _route(cfg, p, xt)
     keep = pos_flat < C                                        # capacity drop
 
     # scatter tokens -> (E*C, d); dropped rows add zeros into the sink
@@ -90,21 +118,115 @@ def _moe_ffn_global(cfg: ModelConfig, p, x: torch.Tensor
     disp = torch.zeros((E * C, d), dtype=x.dtype, device=x.device)
     disp.index_add_(0, torch.where(keep, flat_idx, E * C - 1),
                     torch.where(keep[:, None], src, torch.zeros_like(src)))
-    disp = disp.reshape(E, C, d)
+    disp = hint(disp.reshape(E, C, d), "tp", "dp", None)  # EP + capacity on dp
 
     # expert FFN, batched over experts
-    h = torch.bmm(disp, p["w1"])
-    g = torch.bmm(disp, p["w3"])
-    y = torch.bmm(F.silu(h) * g, p["w2"])
+    h = hint(torch.bmm(disp, p["w1"]), "tp", "dp", None)
+    g = hint(torch.bmm(disp, p["w3"]), "tp", "dp", None)
+    y = hint(torch.bmm(F.silu(h) * g, p["w2"]), "tp", "dp", None)
 
     # gather back with the routing weights (dropped slots weigh zero)
-    picked = y.reshape(E * C, d)[flat_idx.clamp(max=E * C - 1)]  # (T*k, d)
+    picked = hint(y.reshape(E * C, d)[flat_idx.clamp(max=E * C - 1)],
+                  "dp", None)                                  # (T*k, d)
     w = (topw.reshape(-1) * keep).to(x.dtype)
-    out = (picked * w[:, None]).reshape(T, k, d).sum(dim=1)
+    out = hint((picked * w[:, None]).reshape(T, k, d).sum(dim=1), "dp", None)
 
-    # load-balancing aux loss (Switch): E * sum_e f_e * P_e
-    frac = counts.float() / max(T * k, 1)
-    aux = E * torch.sum(frac * probs.mean(0)) * cfg.router_aux_weight
+    if "shared" in p:
+        sp = p["shared"]
+        out = out + (F.silu(xt @ sp["w1"]) * (xt @ sp["w3"])) @ sp["w2"]
+    return out.reshape(B, S, d), aux
+
+
+# ------------------------------------------------------------- sharded path
+def _expert_shard(w, mesh, spec) -> torch.Tensor:
+    """This rank's block of an expert weight: a DTensor's local tensor, or
+    the in_spec's block of a whole tensor (autograd flows into it)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(w, DTensor):
+        return w.to_local()
+    return shd.local_block(w, mesh, spec)
+
+
+def _moe_ffn_sharded(cfg: ModelConfig, p, x: torch.Tensor, rules: dict
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Routed experts per mesh shard — the reference's shard_map path.
+
+    ``x`` is this rank's share of the tokens (its DP shard), the same on
+    every model rank; each rank routes its tokens, dispatches only to its
+    own expert range ``[rank * E_loc, (rank + 1) * E_loc)`` with the
+    per-shard capacity ``C_loc`` (the rest go to an overflow slot), gathers
+    its experts' FSDP shards over "data" (in_specs ``(tp, None, "data")`` /
+    ``(tp, "data", None)``), runs three ``bmm``s, and sums the experts'
+    outputs over "model". The aux loss is the mean over the DP axes.
+
+    Gradients are those of the reference's single loss: the model-axis sum
+    passes its cotangent through and the routing weights and dispatched
+    tokens collect every model rank's contribution, so every rank holds the
+    whole gradient of its replicated values and of its own expert shard;
+    over DP each rank's gradient is its tokens' share. Where ``E`` does not
+    divide over "model" the global path runs (the reference's other
+    condition, tokens divisible over DP, holds by construction: ``x`` is
+    already one DP shard)."""
+    mesh = rules["mesh"]
+    dp_axes = rules["dp"] or ()
+    tp = rules["tp"]
+    E, k = cfg.n_experts, cfg.experts_per_token
+    tp_size = rules["tp_size"] if tp else 1
+    if E % tp_size != 0:
+        return _moe_ffn_global(cfg, p, x)
+    B, S, d = x.shape
+    Tl = B * S
+    C_loc = _capacity(cfg, Tl)
+    E_loc = E // tp_size
+    # a collective over one rank is the identity: skip it
+    model_group = mesh.get_group(tp) if tp_size > 1 else None
+    xt = x.reshape(Tl, d)
+    topw, e_flat, pos_flat, aux = _route(cfg, p, xt)
+
+    # this model rank dispatches only its expert range
+    rank = mesh.get_local_rank(tp) if tp else 0
+    lo = rank * E_loc
+    keep = (e_flat >= lo) & (e_flat < lo + E_loc) & (pos_flat < C_loc)
+    slot = torch.where(keep, (e_flat - lo) * C_loc + pos_flat,
+                       E_loc * C_loc)                          # overflow slot
+    if model_group is not None:
+        xd = coll.FromModel.apply(xt, model_group)
+        topw = coll.FromModel.apply(topw, model_group)
+    else:
+        xd = xt
+    src = torch.repeat_interleave(xd, k, dim=0) * keep[:, None].to(x.dtype)
+    disp = torch.zeros((E_loc * C_loc + 1, d), dtype=x.dtype,
+                       device=x.device).index_add(0, slot, src)
+    disp = disp[:-1].reshape(E_loc, C_loc, d)
+
+    # FSDP gather of the local experts' weights (its gradient: a
+    # reduce-scatter). Over one data rank the shard is the whole weight and
+    # is used as it is: the experts are the layer's largest tensors (22.6 GB
+    # in bf16 for one deepseek-v3 layer), and a gathered copy of each would
+    # not fit beside them
+    w1 = _expert_shard(p["w1"], mesh, shd.P(tp, None, "data"))
+    w3 = _expert_shard(p["w3"], mesh, shd.P(tp, None, "data"))
+    w2 = _expert_shard(p["w2"], mesh, shd.P(tp, "data", None))
+    data_group = mesh.get_group("data") if dp_axes else None
+    if data_group is not None and dist.get_world_size(data_group) > 1:
+        w1 = coll.GatherData.apply(w1, 2, data_group)
+        w3 = coll.GatherData.apply(w3, 2, data_group)
+        w2 = coll.GatherData.apply(w2, 1, data_group)
+    h = torch.bmm(disp, w1)
+    g = torch.bmm(disp, w3)
+    y = torch.bmm(F.silu(h) * g, w2)
+
+    yf = torch.cat([y.reshape(E_loc * C_loc, d),
+                    torch.zeros((1, d), dtype=y.dtype, device=y.device)])
+    picked = yf[slot]                                          # (Tl*k, d)
+    w = (topw.reshape(-1) * keep).to(x.dtype)
+    part = (picked * w[:, None]).reshape(Tl, k, d).sum(dim=1)
+    out = coll.SumToModel.apply(part, model_group) if model_group is not None \
+        else part                                              # combine experts
+
+    if dp_axes and rules["dp_size"] > 1:
+        aux = coll.MeanOverRanks.apply(aux, [mesh.get_group(a) for a in dp_axes],
+                                       rules["dp_size"])
 
     if "shared" in p:
         sp = p["shared"]

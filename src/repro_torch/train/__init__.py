@@ -1,2 +1,2 @@
-"""Training: AdamW, the train step, checkpoints and the loop (the port of
-``repro.train``; ``elastic.py`` waits for the port of ``dist/``)."""
+"""Training: AdamW, the train step, checkpoints, the loop and elastic
+restore onto a new mesh (the port of ``repro.train``)."""

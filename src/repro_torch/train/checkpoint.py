@@ -175,11 +175,33 @@ def _leaf(arr: np.ndarray, dtype: str) -> torch.Tensor:
     its uint16 bits)."""
     if dtype not in _TORCH_DTYPES:
         raise TypeError(f"checkpoint dtype {dtype!r} has no torch dtype here")
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    # ascontiguousarray makes a 0-d array (1,): keep the stored shape
+    t = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
     want = _TORCH_DTYPES[dtype]
     if t.dtype != want:
         t = t.view(want)            # the same width: a uint view of bf16
     return t
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _place_block(arr: torch.Tensor, tgt) -> torch.Tensor:
+    """The stored leaf as a DTensor on ``tgt``'s mesh and placements: this
+    rank keeps its own block (no communication), on the mesh's device."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pl = tgt.device_mesh, tgt.placements
+    shape, offset = compute_local_shape_and_global_offset(arr.shape, mesh, pl)
+    block = arr[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    return DTensor.from_local(block.to(device=dev, dtype=tgt.dtype),
+                              mesh, pl, run_check=False, shape=arr.shape,
+                              stride=tgt.stride())
 
 
 def restore(directory: str, step: int | None = None, *,
@@ -187,7 +209,9 @@ def restore(directory: str, step: int | None = None, *,
     """Load a checkpoint as a nested dict of CPU tensors. With ``target``
     (a tree of tensors, meta tensors included) the key sets must match;
     each leaf is cast to the target's dtype, placed on its device (the host
-    for a meta target) and the target's structure is returned."""
+    for a meta target) and the target's structure is returned. A DTensor
+    target (``train.elastic.shard_targets``) gets a DTensor on its mesh and
+    placements, each rank holding only its block."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -217,6 +241,8 @@ def restore(directory: str, step: int | None = None, *,
         if tuple(arr.shape) != tuple(tgt.shape):
             raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)}, "
                              f"target {tuple(tgt.shape)}")
+        if _is_dtensor(tgt):
+            return _place_block(arr, tgt)
         dev = "cpu" if tgt.device.type == "meta" else tgt.device
         return arr.to(device=dev, dtype=tgt.dtype)
 

@@ -40,7 +40,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.core.scheduler", "repro_torch.core.simulator",
             "repro_torch.core.executor", "repro_torch.core.workloads",
             "repro_torch.analysis.lint",
-            "repro_torch.analysis.__main__"} <= set(mods)
+            "repro_torch.analysis.__main__",
+            "repro_torch.dist", "repro_torch.dist.sharding",
+            "repro_torch.dist.hints", "repro_torch.dist.compression",
+            "repro_torch.dist.collectives", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.train.elastic"} <= set(mods)
     assert len(mods) > 20
     code = "\n".join([
         "import importlib, sys",

@@ -437,8 +437,13 @@ def test_train_step_refuses_frozen_models_and_grad_specs():
     with pytest.raises(ValueError, match="frozen"):
         step(model, init_opt_state(OptConfig(), dict(
             model.named_parameters())), {"tokens": x, "labels": x})
-    with pytest.raises(NotImplementedError, match="dist/"):
-        make_train_step(cfg, OptConfig(), grad_specs={})
+    # grad_specs place gradients on a mesh: outside sharding_rules the step
+    # refuses them, as the reference's constraint fails outside a mesh
+    trainable = make_trainable(cfg, init_params(cfg, 0, device="cpu"))
+    with pytest.raises(RuntimeError, match="sharding_rules"):
+        make_train_step(cfg, OptConfig(), grad_specs={})(
+            trainable, init_opt_state(OptConfig(), dict(
+                trainable.named_parameters())), {"tokens": x, "labels": x})
     for arch in JAX_ARCHS:                 # every family trains
         assert callable(make_train_step(get_smoke(arch), OptConfig()))
 
