@@ -108,6 +108,24 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    and restored with ``elastic_restore`` onto the mesh, bit for bit with
    ``param_specs``' placements; and the host cost of the ``hint`` and
    ``tp_divides`` sites in one granite-3-2b decode step (``hint_sites``);
+   (before it, 11a and 11b:)
+11a. the launch phase (``launch_phase``): ``python -m
+   repro_torch.launch.dryrun --arch granite-3-2b --mesh pod1`` as a
+   subprocess (a fake 512-rank group on meta tensors), its three records
+   ``ok``; then ``repro_torch.launch.profile_cell`` on cuda:0 for each of
+   those cells at published width and depth, one data rank's batch:
+   train_4k (16 x 4096, the recipe's 2 microbatches), prefill_32k (B2,
+   max_seq 32768), decode_32k (B8 over a 32,768-row cache); K1 160 a train
+   step, 40 a prefill, K2 40 and K1 0 a decode step, and the card's
+   dispatched matmul FLOPs equal to the dry run's meta count (FLOPS_RTOL);
+   wall, busy time, idle share, MFU, top kernels and peak memory against
+   the dry run's estimate are printed. The kernel phase (3) also holds K1
+   at prefill_32k's shape (on its first and last 1,024 query rows) and K2
+   at decode_32k's to their plain versions and times them;
+11b. the examples phase (``examples_phase``): ``repro_torch.examples``'
+   quickstart, serve_routed, train_lm (the 100M model, 300 steps, a
+   failure at step 150) and elastic_restart on the card with their
+   defaults, their own assertions the checks;
 13. prints the kernels' JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -138,7 +156,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3
 TOL = {"float32": 2e-5, "bfloat16": 0.05}
@@ -307,6 +324,17 @@ DECODE_EDGE = [
     (2, 512, 24, 2, 64, 0, [512, 130]),
     (3, 500, 8, 8, 64, 0, [500, 500, 500]),
 ]
+# the production cells' shapes (granite-3-2b at one data rank's share of the
+# pod1 mesh): K1 at prefill_32k's (B2, S 32768) and K2 at decode_32k's (B8,
+# a 32,768-row cache, lengths from path_lengths). The plain K1 materialises
+# the f32 score square (B Hq S^2 x 4 B = 275 GB here), so the kernel's output
+# is held to it on slices of FLASH_LONG_ROWS query rows (the first and the
+# last, via q_offset, against all keys); the timed call is the whole shape,
+# and the plain version's time is that of the last slice (labelled so)
+FLASH_LONG = ("prefill_32k granite-3-2b",
+              (2, 32768, 32768, 32, 8, 64, True, 0, 0))
+FLASH_LONG_ROWS = 1024
+DECODE_LONG = ("decode_32k granite-3-2b", (8, 32768, 32, 8, 64, 0))
 DESIGN = {"flash_attention": "wgmma+tma", "decode_attention": "chunked-v16"}
 CHUNKS_TRIED = (128, 192, 256, 320, 384, 512)   # --sweep-decode-chunks
 
@@ -335,36 +363,8 @@ def compare(torch, out, want) -> tuple[float, float | None, bool]:
     return err, ratio, ok
 
 
-def flash_work(case, itemsize: int, dv: int | None = None) -> tuple[float, float]:
-    """(operations, bytes) the function needs: 2 * (hd + dv) per visible
-    (q, k) pair per q-head; q, k, v read once and o written once. ``dv`` is
-    V's and the output's width (default hd)."""
-    B, Sq, Sk, Hq, Hkv, hd, causal, window, off = case
-    dv = hd if dv is None else dv
-    pairs = 0
-    for i in range(Sq):
-        qp = off + i
-        hi = min(Sk - 1, qp) if causal else Sk - 1
-        lo = max(0, qp - window + 1) if window > 0 else 0
-        pairs += max(0, hi - lo + 1)
-    ops = 2.0 * B * Hq * (hd + dv) * pairs
-    nbytes = itemsize * (B * Sq * Hq * (hd + dv) + B * Sk * Hkv * (hd + dv))
-    return ops, nbytes
-
-
-def decode_work(case, lengths: list[int], itemsize: int) -> tuple[float, float]:
-    """(operations, bytes) for these lengths: only the live rows of the cache
-    are read (clamped to S, cut to the window)."""
-    B, S, Hq, Hkv, hd, window = case
-    live = [min(n, S) if window <= 0 else min(min(n, S), window)
-            for n in lengths]
-    ops = 4.0 * Hq * hd * sum(live)
-    nbytes = itemsize * (2 * Hkv * hd * sum(live) + 2 * B * Hq * hd) \
-        + 4 * B
-    return ops, nbytes
-
-
 def bound_ms(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+    from repro_torch.launch.profile_cell import PEAK_BF16_FLOPS
     peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
     t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -372,6 +372,7 @@ def bound_ms(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
 
 
 def kernel_phase(torch, kern) -> dict:
+    from repro_torch.launch.op_analysis import decode_work, flash_work
     ref, flash, decode = kern["ref"], kern["flash"], kern["decode"]
     F = torch.nn.functional
     gen = torch.Generator(device="cuda")
@@ -581,10 +582,111 @@ def kernel_phase(torch, kern) -> dict:
                           library_call=lib_call, bound_ms=b_ms, bound_by=b_by,
                           max_abs_err=err, host_us=h_us))
         rows.setdefault("decode_attention", dict(paths[-1]))
+    paths += production_shapes(torch, kern, mk, check)
+    need(not failed, f"kernel check failed: {failed}")
     for name in rows:
         rows[name]["max_abs_err"] = worst[name]
     print("[paths] " + json.dumps({"path_shapes": paths}), flush=True)
     return rows
+
+
+def production_shapes(torch, kern, mk, check) -> list[dict]:
+    """K1 at FLASH_LONG and K2 at DECODE_LONG: f32 and bf16 checks against
+    the plain version (K1 on its first and last FLASH_LONG_ROWS query rows),
+    then the bf16 kernel's time, the plain version's (K1: the last slice
+    alone), scaled_dot_product_attention's and the bound. Returns their
+    ``[paths]`` entries."""
+    from repro_torch.launch.op_analysis import decode_work, flash_work
+    ref, flash, decode = kern["ref"], kern["flash"], kern["decode"]
+    F = torch.nn.functional
+    out = []
+    name, case = FLASH_LONG
+    B, Sq, Sk, Hq, Hkv, hd, causal, window, off = case
+    R = FLASH_LONG_ROWS
+    kw = dict(causal=causal, window=window, q_offset=off)
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = mk((B, Sq, Hq, hd), dt), mk((B, Sk, Hkv, hd), dt), \
+            mk((B, Sk, Hkv, hd), dt)
+        o = flash(q, k, v, **kw)
+        torch.cuda.synchronize()
+        for lo in (0, Sq - R):
+            want = ref.flash_attention_ref(q[:, lo:lo + R], k, v,
+                                           causal=causal, window=window,
+                                           q_offset=off + lo)
+            err = max(err, check("flash_attention",
+                                 f"{name} {case} rows {lo}..{lo + R - 1}",
+                                 dt, o[:, lo:lo + R], want))
+            del want
+        del q, k, v, o
+        free_cuda(torch)
+    ops, nbytes = flash_work(case, 2)
+    dt = torch.bfloat16
+    q, k, v = mk((B, Sq, Hq, hd), dt), mk((B, Sk, Hkv, hd), dt), \
+        mk((B, Sk, Hkv, hd), dt)
+    t_k = time_ms(torch, lambda: flash(q, k, v, **kw), 2)
+    t_p = events_ms(torch, lambda: ref.flash_attention_ref(
+        q[:, Sq - R:], k, v, causal=causal, window=window,
+        q_offset=off + Sq - R), 2)
+    lib_call = "scaled_dot_product_attention(is_causal, enable_gqa)"
+    t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True), 2)
+    h_us = host_us(torch, lambda: flash(q, k, v, **kw), 10)
+    b_ms, b_by = bound_ms(ops, nbytes, "bfloat16")
+    print(f"  flash_attention  {name} kernel_ms={t_k:.4f} plain_ms(last "
+          f"{R} rows only)={t_p:.4f} library_ms={t_l:.4f} bound_ms="
+          f"{b_ms:.5f} by {b_by} ({ops:.3e} op, {nbytes:.3e} B); kernel at "
+          f"{ops / t_k / 1e9:.1f} TFLOP/s; host enqueue {h_us:.1f} us",
+          flush=True)
+    out.append(dict(kernel="flash_attention", path=name, case=case, ms=t_k,
+                    plain_ms=None, plain_rows_ms=t_p, plain_rows=R,
+                    library_ms=t_l, library_call=lib_call, bound_ms=b_ms,
+                    bound_by=b_by, max_abs_err=err, host_us=h_us))
+    del q, k, v
+    free_cuda(torch)
+
+    name, case = DECODE_LONG
+    B, S, Hq, Hkv, hd, window = case
+    lens = path_lengths(torch, B, S, SEED)
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        q, kc, vc = mk((B, Hq, hd), dt), mk((B, S, Hkv, hd), dt), \
+            mk((B, S, Hkv, hd), dt)
+        o = decode(q, kc, vc, lens, window=window)
+        torch.cuda.synchronize()
+        err = max(err, check("decode_attention", f"{name} {case} lengths "
+                             f"{lens.tolist()}", dt, o, ref.decode_attention_ref(
+                                 q, kc, vc, lens, window=window)))
+        del q, kc, vc, o
+    free_cuda(torch)
+    ops, nbytes = decode_work(case, lens.tolist(), 2)
+    dt = torch.bfloat16
+    q, kc, vc = mk((B, Hq, hd), dt), mk((B, S, Hkv, hd), dt), \
+        mk((B, S, Hkv, hd), dt)
+    kpos = torch.arange(S, device="cuda")[None, :]
+    mask = (kpos < lens.clamp(max=S)[:, None])[:, None, None, :]
+    lib_call = "scaled_dot_product_attention(attn_mask, enable_gqa)"
+    t_k = time_ms(torch, lambda: decode(q, kc, vc, lens, window=window), 20)
+    t_p = time_ms(torch, lambda: ref.decode_attention_ref(
+        q, kc, vc, lens, window=window), 4)
+    t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True), 20)
+    h_us = host_us(torch, lambda: decode(q, kc, vc, lens, window=window))
+    b_ms, b_by = bound_ms(ops, nbytes, "bfloat16")
+    print(f"  decode_attention {name} kernel_ms={t_k:.4f} plain_ms={t_p:.4f}"
+          f" library_ms={t_l:.4f} bound_ms={b_ms:.5f} by {b_by} lengths="
+          f"{lens.tolist()} ({ops:.3e} op, {nbytes:.3e} B); kernel at "
+          f"{nbytes / t_k / 1e6:.0f} GB/s, chunk {kern['chunk_size'](hd)}; "
+          f"host enqueue {h_us:.1f} us", flush=True)
+    out.append(dict(kernel="decode_attention", path=name, case=case,
+                    lengths="random", ms=t_k, plain_ms=t_p, library_ms=t_l,
+                    library_call=lib_call, bound_ms=b_ms, bound_by=b_by,
+                    max_abs_err=err, host_us=h_us))
+    del q, kc, vc
+    free_cuda(torch)
+    return out
 
 
 def sweep_decode_chunks(torch, ref) -> None:
@@ -790,6 +892,7 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
     from repro_torch.core.config import ServingConfig
     from repro_torch.core.locstore import LocStore, tiered_hierarchy
     from repro_torch.core.prefetch import PrefetchEngine
+    from repro_torch.launch.profile_cell import profile
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Router, ServingEngine
     park_at = steps // 2 if park_at is None else park_at
@@ -920,14 +1023,14 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
     prefetch.shutdown()
     # where the time goes, and K1/K2 consistency (after every count was read)
     res["profile_decode"] = profile(
-        torch, f"one pooled decode step (B={max_batch})",
+        f"one pooled decode step (B={max_batch})",
         lambda: engines[-1].step(), 2)
     if profile_prompt is not None:
         p_eng = next((e for e in engines if e.can_admit()), None)
         need(p_eng is not None, f"{label}: no free slot for the profiled "
              f"prefill")
         res["profile_prefill"] = profile(
-            torch, f"one {len(profile_prompt)}-token prefill",
+            f"one {len(profile_prompt)}-token prefill",
             lambda: p_eng.finish(p_eng.submit(profile_prompt)), 1)
     if consistency is not None:
         i, n, k = consistency
@@ -968,85 +1071,6 @@ def serve_granite(torch, kern) -> dict:
         kv_bytes=2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * 2048 + 4,
         consistency=(1, 256, 4), live_follow_up=True, check_warm=True,
         profile_prompt=rng.integers(0, cfg.vocab, size=1024).tolist())
-
-
-def busy_ms(intervals) -> float:
-    """Length of the union of ``[start, end)`` intervals (the device's busy
-    time, in the intervals' unit): an instant covered by two events (a copy
-    on a side stream under a kernel) counts once."""
-    total, end = 0.0, -math.inf
-    for a, b in sorted(intervals):
-        if b <= end:
-            continue
-        total += b - max(a, end)
-        end = b
-    return total
-
-
-def device_intervals(torch, prof) -> list[tuple[float, float]]:
-    """The profiled device events' spans in ms (kernels, copies, memsets);
-    the annotation ranges' device spans, which cover other events and the
-    gaps between them, are left out."""
-    from torch.autograd import DeviceType
-    return [(e.time_range.start / 1e3, e.time_range.end / 1e3)
-            for e in prof.events()
-            if getattr(e, "device_type", DeviceType.CPU) != DeviceType.CPU
-            and not getattr(e, "is_user_annotation", False)
-            and e.key not in TRAIN_RANGES]
-
-
-def profile(torch, what: str, fn, reps: int) -> dict:
-    """Device time by kernel over ``reps`` calls of ``fn`` (torch.profiler),
-    the host-side kernel launches per call, and the device's idle share
-    against the calls' wall time measured without the profiler; busy time is
-    the union of the device events' spans (``busy_ms``)."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-    fn()                                          # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    wall = 1e3 * (time.perf_counter() - t0) / reps
-    t0 = time.perf_counter()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA],
-                       acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    prof_wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-    # device events only (kernels, copies): an aten op's self device time
-    # is that of the kernels it launched, which are listed as well
-    from torch.autograd import DeviceType
-    averages = prof.key_averages()
-    rows = [(e.key, e.count) for e in averages]
-    dev = [(e.key, e.self_device_time_total / 1e3 / reps, e.count / reps)
-           for e in averages
-           if getattr(e, "device_type", DeviceType.CPU) != DeviceType.CPU
-           and e.self_device_time_total > 0]
-    dev.sort(key=lambda r: -r[1])
-    busy = busy_ms(device_intervals(torch, prof)) / reps
-    launches = sum(c for k, c in rows
-                   if k in ("cudaLaunchKernel", "cuLaunchKernel",
-                            "cudaLaunchKernelExC", "cuLaunchKernelEx")) / reps
-    out = {"device_busy_ms": busy, "wall_ms": wall,
-           "device_event_sum_ms": sum(t for _, t, _ in dev),
-           "wall_ms_under_profiler": prof_wall_ms,
-           "idle_share": (1.0 - busy / wall) if wall > 0 else None,
-           "host_launches": launches,
-           "top": [(k[:60], round(t, 4), round(n, 1)) for k, t, n in dev[:8]]}
-    if busy == 0.0:
-        print(f"  profile {what}: the profiler saw no device time "
-              f"(not measured)", flush=True)
-    else:
-        print(f"  profile {what}: device busy {busy:.3f} ms of {wall:.3f} "
-              f"ms wall (idle share {out['idle_share']:.3f}); "
-              f"{launches:.0f} kernel launches per call", flush=True)
-        for k, t, n in dev[:8]:
-            print(f"    {t:9.4f} ms  x{n:6.1f}  {k[:90]}", flush=True)
-    return out
 
 
 def serve_gemma(torch, kern) -> dict:
@@ -1303,7 +1327,6 @@ def trace_granite(torch, kern) -> dict:
 
 
 # ------------------------------------------------------------------ train phase
-TRAIN_RANGES = ("flash_attention_bwd_plain", "adamw_update")
 # gradient check: relative error norm per leaf, K1 under autograd against
 # torch autograd of the plain version. f32: K1 f32 is within 2e-5 of the
 # plain output (the kernel phase), so the gradients part by f32 noise that a
@@ -1388,15 +1411,18 @@ def train_profile(torch, prof, wall: float) -> dict:
     of every GEMM kernel, and of the two annotated ranges (the plain
     attention backward, AdamW)."""
     from torch.autograd import DeviceType
+
+    from repro_torch.launch.profile_cell import (RANGES, busy_ms,
+                                                 device_intervals)
     avg = prof.key_averages()
     dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in avg
            if getattr(e, "device_type", DeviceType.CPU) != DeviceType.CPU
-           and e.self_device_time_total > 0 and e.key not in TRAIN_RANGES]
+           and e.self_device_time_total > 0 and e.key not in RANGES]
     dev.sort(key=lambda r: -r[1])
-    busy = busy_ms(device_intervals(torch, prof))
+    busy = busy_ms(device_intervals(prof))
     ranges = {r: sum(e.device_time_total / 1e3 for e in avg if e.key == r
                      and getattr(e, "device_type", DeviceType.CPU)
-                     == DeviceType.CPU) for r in TRAIN_RANGES}
+                     == DeviceType.CPU) for r in RANGES}
     k1 = sum(t for k, t, _ in dev if "flash_tc_kernel" in k
              or "flash_kernel" in k)
     gemm = sum(t for k, t, _ in dev
@@ -1697,6 +1723,7 @@ def train_granite(torch, kern) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticCorpus
     from repro_torch.kernels import ref
+    from repro_torch.launch.profile_cell import PEAK_BF16_FLOPS
     from repro_torch.models import model as M
     from repro_torch.train.loop import TrainConfig, train
     from repro_torch.train.optimizer import OptConfig, init_opt_state
@@ -1837,91 +1864,6 @@ def attention_applications(cfg) -> int:
     return cfg.n_layers
 
 
-def forward_flops(cfg, B: int, S: int) -> float:
-    """Matmul FLOPs (2 per multiply-add) of one forward pass over B x S
-    tokens: every projection on the tokens it is applied to (whisper's
-    encoder on its frames, the cross K/V on the frames or patches), QK^T and
-    PV over the pairs a mask lets through (MLA's PV at V's own 128 columns),
-    the router and the experts each token is routed to (top-k routed plus
-    the shared ones), the SSD's chunk products, the WKV state products, and
-    the head."""
-    from repro_torch.models import model as M
-    from repro_torch.models import rwkv, ssm
-    T, d, H, Hkv, hd = B * S, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-
-    def lin(t, i, o):
-        return 2.0 * t * i * o
-
-    def attn(sq, sk, causal, dqk=hd, dv=hd):
-        pairs = sq * (sq + 1) / 2 if causal else sq * sk
-        return 2.0 * B * H * (dqk + dv) * pairs
-
-    def gqa(t, tk=None, tq_len=S, tk_len=None, causal=True):
-        tk = t if tk is None else tk
-        tk_len = tq_len if tk_len is None else tk_len
-        return (lin(t, d, H * hd) + lin(t, H * hd, d) + 2 * lin(tk, d, Hkv * hd)
-                + attn(tq_len, tk_len, causal))
-
-    def mlp(t, ff, gated=True):
-        return (3 if gated else 2) * lin(t, d, ff)
-
-    head = lin(T, d, M.padded_vocab(cfg))
-    fam = cfg.family
-    if fam in ("dense", "localglobal"):
-        return cfg.n_layers * (gqa(T) + mlp(T, cfg.d_ff)) + head
-    if fam == "encdec":
-        F, E = cfg.n_frames, cfg.encoder_layers
-        enc = E * (gqa(B * F, tq_len=F, causal=False)
-                   + mlp(B * F, cfg.d_ff, False))
-        dec = cfg.n_layers * (gqa(T) + gqa(T, B * F, tk_len=F, causal=False)
-                              + mlp(T, cfg.d_ff, False))
-        return enc + dec + head
-    if fam == "vlm":
-        G, per = M._vlm_layout(cfg)
-        P = cfg.n_patches
-        return (G * per * (gqa(T) + mlp(T, cfg.d_ff))
-                + G * (gqa(T, B * P, tk_len=P, causal=False)
-                       + mlp(T, cfg.d_ff)) + head)
-    if fam == "moe":
-        m = cfg.mla
-        if m is None:
-            attn_f = gqa(T)
-        else:
-            attn_f = (lin(T, d, m.q_lora_rank)
-                      + lin(T, m.q_lora_rank, H * m.qk_head_dim)
-                      + lin(T, d, m.kv_lora_rank + m.qk_rope_head_dim)
-                      + lin(T, m.kv_lora_rank,
-                            H * (m.qk_nope_head_dim + m.v_head_dim))
-                      + lin(T, H * m.v_head_dim, d)
-                      + attn(S, S, True, m.qk_head_dim, m.v_head_dim))
-        dense = attn_f + mlp(T, cfg.d_ff)
-        routed = (lin(T, d, cfg.n_experts)
-                  + 3 * lin(T * cfg.experts_per_token, d, cfg.moe_d_ff)
-                  + 3 * lin(T, d, cfg.moe_d_ff * cfg.n_shared_experts)
-                  + (mlp(T, cfg.d_ff) if cfg.dense_residual else 0.0))
-        n_dense = cfg.first_dense_layers
-        total = n_dense * dense + (cfg.n_layers - n_dense) * (attn_f + routed)
-        if cfg.mtp_depth:
-            total += lin(T, 2 * d, d) + dense + head
-        return total + head
-    if fam == "hybrid":
-        d_in, Hs, P, N = ssm.ssm_dims(cfg)
-        Q = min(ssm.CHUNK, S)
-        nc = -(-S // Q)
-        ssd = B * nc * (2.0 * Q * Q * N + 2.0 * Hs * Q * Q * P
-                        + 4.0 * Q * Hs * P * N)
-        mamba = lin(T, d, 2 * d_in + 2 * N + Hs) + lin(T, d_in, d) + ssd
-        G = cfg.n_layers // cfg.attn_every
-        return (cfg.n_layers * mamba + G * (gqa(T) + mlp(T, cfg.d_ff))
-                + head)
-    Hr, K = rwkv.rwkv_dims(cfg)                                 # rwkv
-    tm = (lin(T, d, 5 * rwkv.TM_LORA) + 5 * lin(T, rwkv.TM_LORA, d)
-          + lin(T, d, rwkv.W_LORA) + lin(T, rwkv.W_LORA, d) + 5 * lin(T, d, d)
-          + 4.0 * T * Hr * K * K)
-    cm = lin(T, d, cfg.d_ff) + lin(T, cfg.d_ff, d) + lin(T, d, d)
-    return cfg.n_layers * (tm + cm) + head
-
-
 # The five families' train phases: published width, the depth one card
 # holds; steps 1 (warm-up), 2 (timed) and 3 (profiled); the gradient check
 # at published width and a small depth (the config fields in "cut"; B, S),
@@ -1977,6 +1919,8 @@ def train_family(torch, kern, spec: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticCorpus
     from repro_torch.kernels import ref
+    from repro_torch.launch.op_analysis import forward_flops
+    from repro_torch.launch.profile_cell import PEAK_BF16_FLOPS
     from repro_torch.models import model as M
     from repro_torch.train.loop import TrainConfig, train
     from repro_torch.train.optimizer import OptConfig
@@ -2107,7 +2051,6 @@ def train_family(torch, kern, spec: dict) -> dict:
 
 # ------------------------------------------------------------------ main
 # ------------------------------------------------------------- workflows
-QUICKSTART_BYTES = 64 * 1024 * 1024   # the quickstart's @size of ``raw``
 # the quickstart's result on the card against the same graph with CPU bodies:
 # two f32 FFTs of 8 Mi points and sums over 4 Mi magnitudes, whose order of
 # summation differs between the two (read: ~1e-7)
@@ -2120,70 +2063,26 @@ EPOCH_LAYERS = 4
 EPOCH_RTOL = 1e-5                     # its losses against train()'s
 
 
-def quickstart_workflow(C):
-    """The quickstart's four-task graph (``examples/quickstart.py``),
-    compiled for the port's default hardware (one H100 per node)."""
-    g = C.TaskGraph()
-    g.add_data("raw", size_bytes=C.size_hint(QUICKSTART_BYTES))
-    g.add_task("split", inputs=("raw",), outputs=("a", "b"),
-               hints=C.task(compute="linear", io_ratio=0.5))
-    g.add_task("fft_a", inputs=("a",), outputs=("fa",),
-               hints=C.task(compute="nlogn", io_ratio=1.0))
-    g.add_task("fft_b", inputs=("b",), outputs=("fb",),
-               hints=C.task(compute="nlogn", io_ratio=1.0))
-    g.add_task("merge", inputs=("fa", "fb"), outputs=("out",),
-               hints=C.task(compute="linear", io_ratio=0.5))
-    return C.compile_workflow(g)
-
-
-def quickstart_bodies(torch, dev) -> dict:
-    """The quickstart's bodies as torch ops on ``dev``: the split (after
-    one copy of ``raw`` to ``dev``), ``torch.fft.rfft`` and the merge's
-    sum."""
-    def split(raw):
-        r = raw.to(dev, non_blocking=True)
-        half = r.numel() // 2
-        return {"a": r[:half], "b": r[half:]}
-
-    return {
-        "split": split,
-        "fft_a": lambda a: {"fa": torch.fft.rfft(a).real.contiguous()},
-        "fft_b": lambda b: {"fb": torch.fft.rfft(b).real.contiguous()},
-        "merge": lambda fa, fb: {
-            "out": float(fa.abs().sum() + fb.abs().sum())},
-    }
-
-
-def run_quickstart(torch, raw, dev, device_of):
-    """(executor, result) of the quickstart graph through the proactive
-    scheduler on 2 nodes, its bodies on ``dev``."""
-    from repro_torch import core as C
-    wf = quickstart_workflow(C)
-    for tid, fn in quickstart_bodies(torch, dev).items():
-        wf.graph.tasks[tid].fn = fn
-    ex = C.WorkflowExecutor(wf, C.ProactiveScheduler(wf), n_nodes=2,
-                            device_of=device_of,
-                            inject_inputs={"raw": raw})
-    return ex, ex.run()
-
-
 def workflow_quickstart(torch, kern) -> dict:
     """The quickstart's graph on the card: 64 MiB of seeded f32 as a pinned
     host tensor, bodies on cuda:0, both nodes mapped to cuda:0; held to the
     same graph run with CPU bodies. The card run is made twice: the first
     pays cuFFT's plans and the workers' first CUDA calls, the second is
     the one reported in full, with the kernels' launches counted (the
-    graph has no attention: both counts must stay 0)."""
+    graph has no attention: both counts must stay 0). The graph and its
+    bodies are the quickstart example's."""
     import numpy as np
+
+    from repro_torch.examples.quickstart import RAW_BYTES, run_quickstart
     raw = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
-        QUICKSTART_BYTES // 4).astype(np.float32)).pin_memory()
-    _, cpu = run_quickstart(torch, raw, torch.device("cpu"), None)
+        RAW_BYTES // 4).astype(np.float32)).pin_memory()
+    _, cpu = run_quickstart(raw, torch.device("cpu"))
     dev = torch.device("cuda", 0)
     flash, decode = kern["flash"], kern["decode"]
-    _, first = run_quickstart(torch, raw, dev, lambda node: dev)
+    _, first = run_quickstart(raw, dev, lambda node: dev)
     flash.launches = 0
     decode.launches = 0
-    ex, res = run_quickstart(torch, raw, dev, lambda node: dev)
+    ex, res = run_quickstart(raw, dev, lambda node: dev)
     torch.cuda.synchronize()
     launches = {"flash_attention": flash.launches,
                 "decode_attention": decode.launches}
@@ -2198,7 +2097,7 @@ def workflow_quickstart(torch, kern) -> dict:
     split_at = recs["split"]["node"]
     homes = {n: ex.store.stat(n).real_loc for n in ("a", "b")}
     print(f"[workflow] quickstart (split, fft_a, fft_b, merge over "
-          f"{QUICKSTART_BYTES:,} B of pinned f32; ProactiveScheduler, 2 nodes"
+          f"{RAW_BYTES:,} B of pinned f32; ProactiveScheduler, 2 nodes"
           f" on cuda:0): out {out!r} vs CPU bodies {want!r} (rel {rel:.3e},"
           f" rtol {QUICKSTART_RTOL}); wall {res.wall_seconds * 1e3:.3f} ms "
           f"(first card run {first.wall_seconds * 1e3:.3f} ms; CPU bodies "
@@ -2862,6 +2761,153 @@ def dist_phase(torch, kern) -> dict:
     return res
 
 
+# ------------------------------------------------------------------ launch
+# granite-3-2b's three production cells: the dry run's records on the pod1
+# mesh, then each cell on cuda:0 at published width and depth, one data
+# rank's batch (train_4k 16 x 4096 in the recipe's 2 microbatches,
+# prefill_32k B2 S32768, decode_32k B8 over a 32,768-row cache)
+LAUNCH_ARCH = "granite-3-2b"
+LAUNCH_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# the card's dispatched matmul FLOPs against the dry run's meta count: the
+# same ops with the same shapes, summed in the same order
+FLOPS_RTOL = 1e-9
+
+
+def launch_phase(torch, kern) -> dict:
+    """``python -m repro_torch.launch.dryrun --arch granite-3-2b --mesh
+    pod1`` in a subprocess (its fake 512-rank group never meets this
+    process's NCCL group), its three records required ``ok``; then
+    ``profile_cell`` for each cell on the card: K1 / K2 launches per step
+    against the path (K1 80 x microbatches a train step, 40 a prefill; K2
+    40 and K1 0 a decode step), the dispatched matmul FLOPs against the dry
+    run's meta count (FLOPS_RTOL), finite outputs; peak memory, wall, busy
+    time, idle share, MFU and the top kernels are reported."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_cell import profile_cell
+    cfg = get_config(LAUNCH_ARCH)
+    out = ROOT / "build" / "dryrun_granite.jsonl"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--arch", LAUNCH_ARCH, "--mesh", "pod1", "--out",
+                           str(out)], env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    dry_s = time.perf_counter() - t0
+    for ln in proc.stdout.splitlines():
+        print(f"[launch] dryrun: {ln}", flush=True)
+    need(proc.returncode == 0, f"dry run exited {proc.returncode}: "
+         f"{proc.stderr[-2000:]}")
+    recs = {r["shape"]: r for r in map(json.loads,
+                                       out.read_text().splitlines())}
+    need(sorted(recs) == sorted(LAUNCH_SHAPES)
+         and all(r["ok"] for r in recs.values()),
+         f"dry run records: {[(r['shape'], r['ok'], r.get('error')) for r in recs.values()]}")
+    print(f"[launch] dry run of {LAUNCH_ARCH} on pod1 (16 x 16, a fake group "
+          f"of 512 ranks, meta tensors) took {dry_s:.1f}s on this host's "
+          f"CPU", flush=True)
+    for shape in LAUNCH_SHAPES:
+        r = recs[shape]
+        print(f"[launch] dryrun {shape}: per device arguments "
+              f"{r['argument_size_in_bytes']:,} B, outputs "
+              f"{r['output_size_in_bytes']:,} B; one data rank (batch "
+              f"{r['batch_per_data_rank']}): dot_flops "
+              f"{r['dot_flops_per_data_rank']:.6e}, collectives "
+              f"{r['collective_total']:,.0f} B in {r['collective_count']}, "
+              f"activation peak {r['activation_peak_bytes']:,} B, one-card "
+              f"estimate {r['one_card_estimate_bytes'] / 2**30:.2f} GiB; "
+              f"fits_h100_80gb {r['fits_h100_80gb']} (upper bound); "
+              f"{r['seconds']}s", flush=True)
+    card = card_line()
+    res = {"dryrun_s": dry_s}
+    for shape in LAUNCH_SHAPES:
+        r = recs[shape]
+        print(f"[launch] {LAUNCH_ARCH} {shape} on cuda:0 (profile_cell)",
+              flush=True)
+        t0 = time.perf_counter()
+        p = profile_cell(LAUNCH_ARCH, shape, "pod1", device="cuda", top=8)
+        p["seconds"] = time.perf_counter() - t0
+        k1, k2 = p["launches"]["flash_attention"], \
+            p["launches"]["decode_attention"]
+        want = {"train": (2 * cfg.n_layers * p["microbatches"], 0),
+                "prefill": (cfg.n_layers, 0),
+                "decode": (0, cfg.n_layers)}[r["kind"]]
+        rel = abs(p["dot_flops"] - r["dot_flops_per_data_rank"]) \
+            / r["dot_flops_per_data_rank"]
+        print(f"[launch] {shape}: launches per step K1 {k1:g} K2 {k2:g} "
+              f"(designed {want}); dot_flops card {p['dot_flops']:.9e} vs "
+              f"dry run {r['dot_flops_per_data_rank']:.9e} (rel {rel:.2e}); "
+              f"the cell's peak memory {p['peak_memory_bytes'] / 2**30:.2f} "
+              f"GiB (above {p['held_before_bytes'] / 2**30:.2f} GiB held "
+              f"before) vs the dry run's one-card estimate "
+              f"{r['one_card_estimate_bytes'] / 2**30:.2f} GiB; wall "
+              f"{p['wall_ms']:.3f} ms, busy {p['device_busy_ms']:.3f} ms, "
+              f"idle share {p['idle_share']:.4f}, MFU {p['mfu']:.4f}; reduced "
+              f"{p['reduced'] or 'nothing'}; {p['seconds']:.1f}s on {card}",
+              flush=True)
+        need((k1, k2) == want, f"launch {shape}: launches per step "
+             f"{(k1, k2)} != {want}")
+        need(rel <= FLOPS_RTOL, f"launch {shape}: dot_flops {p['dot_flops']}"
+             f" vs the dry run's {r['dot_flops_per_data_rank']}")
+        need(p["finite"], f"launch {shape}: the step's output is not finite")
+        p["dryrun"] = {k: r[k] for k in (
+            "argument_size_in_bytes", "output_size_in_bytes",
+            "dot_flops_per_data_rank", "activation_peak_bytes",
+            "one_card_estimate_bytes", "data_rank_argument_bytes",
+            "seconds")}
+        res[shape] = p
+        free_cuda(torch)
+    return res
+
+
+def examples_phase(torch, kern) -> dict:
+    """The four examples on the card with their default arguments (their
+    own assertions are the checks: the routing's hits and prefills, the
+    loss falling over train_lm's 300 steps with its failure and restart at
+    step 150, the content identical after the elastic reshard); K1 / K2
+    launches counted per example."""
+    from repro_torch.examples import (elastic_restart, quickstart,
+                                      serve_routed, train_lm)
+    flash, decode = kern["flash"], kern["decode"]
+    res = {}
+    for name, mod in (("quickstart", quickstart),
+                      ("serve_routed", serve_routed),
+                      ("train_lm", train_lm),
+                      ("elastic_restart", elastic_restart)):
+        print(f"[examples] python -m repro_torch.examples.{name} (defaults, "
+              f"on cuda)", flush=True)
+        flash.launches = 0
+        decode.launches = 0
+        t0 = time.perf_counter()
+        try:
+            r = mod.main([])
+        except AssertionError as exc:
+            raise SmokeFailure(f"example {name}: {exc}") from exc
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = {"flash_attention": flash.launches,
+                    "decode_attention": decode.launches}
+        print(f"[examples] {name} done in {dt:.1f}s; launches {launches}",
+              flush=True)
+        res[name] = {"seconds": dt, "launches": launches}
+        if name == "quickstart":
+            need(math.isfinite(r["out"]), f"quickstart: out {r['out']}")
+        elif name == "train_lm":
+            need(r.restarts == 1 and launches["flash_attention"] > 0,
+                 f"train_lm: {r.restarts} restarts, launches {launches}")
+            res[name]["losses"] = [r.losses[0], r.losses[-1]]
+        elif name == "serve_routed":
+            need(launches["flash_attention"] > 0
+                 and launches["decode_attention"] > 0,
+                 f"serve_routed: launches {launches}")
+        del r
+        free_cuda(torch)
+    return res
+
+
 def ptxas_summary(lines: list[str]) -> list[str]:
     """ptxas' registers, spills and warnings per kernel instance."""
     args = {"f": "f32", "13__nv_bfloat16": "bf16"}
@@ -3054,6 +3100,18 @@ def main(argv: list[str]) -> int:
         torch, kern)["launches"]
     free_cuda(torch)
     print(f"[workflow] epoch phase done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t0 = time.perf_counter()
+    launch = launch_phase(torch, kern)
+    for shape in LAUNCH_SHAPES:
+        by_path[f"launch {LAUNCH_ARCH} {shape}"] = launch[shape]["launches"]
+    print(f"[launch] phase done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t0 = time.perf_counter()
+    examples = examples_phase(torch, kern)
+    for name in ("serve_routed", "train_lm"):
+        by_path[f"example {name}"] = examples[name]["launches"]
+    print(f"[examples] phase done in {time.perf_counter() - t0:.1f}s",
           flush=True)
     t0 = time.perf_counter()
     dist_res = dist_phase(torch, kern)

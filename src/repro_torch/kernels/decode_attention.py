@@ -9,6 +9,9 @@ The kernel's grid is fixed by the cache length: one block per
 :func:`chunk_size` keys of each (b, kv-head) (:func:`chunk_grid`). A block
 streams the live rows of its chunk and a second small kernel merges the
 chunks' partial softmax states in chunk order.
+
+For a ``meta`` tensor (the dry run) the wrapper returns an empty output of the
+kernel's shape and dtype: it launches nothing and leaves the count alone.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return ref.decode_attention_ref(q, k_cache, v_cache, lengths,
                                         window=window,
                                         softmax_scale=softmax_scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     if q.ndim != 3 or k_cache.ndim != 4 or v_cache.shape != k_cache.shape:

@@ -17,6 +17,9 @@ whose backward is the plain chunked VJP
 (:func:`repro_torch.kernels.ref.flash_attention_bwd_ref`). The wrapper refuses
 to run the kernel where autograd would need a gradient of its output, so an
 output without a gradient path cannot reach a training step.
+
+For a ``meta`` tensor (the dry run) the wrapper returns an empty output of the
+kernel's shape and dtype: it launches nothing and leaves the count alone.
 """
 
 from __future__ import annotations
@@ -72,6 +75,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset,
                                        softmax_scale=softmax_scale)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if (q.requires_grad or k.requires_grad or v.requires_grad) \

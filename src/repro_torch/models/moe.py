@@ -92,7 +92,10 @@ def _route(cfg: ModelConfig, p, xt: torch.Tensor):
     # the T*k flat assignments, positions from the segment starts
     e_flat = topi.reshape(-1)                                  # (T*k,)
     order = torch.argsort(e_flat, stable=True)
-    counts = torch.bincount(e_flat, minlength=E)
+    # bincount's length depends on the data (no meta kernel): count into E
+    counts = torch.zeros(E, dtype=e_flat.dtype,
+                         device=xt.device).index_add_(0, e_flat,
+                                                      torch.ones_like(e_flat))
     seg_start = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(T * k, device=xt.device) - seg_start[e_flat[order]]
     pos_flat = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)

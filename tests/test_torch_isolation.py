@@ -44,7 +44,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.dist", "repro_torch.dist.sharding",
             "repro_torch.dist.hints", "repro_torch.dist.compression",
             "repro_torch.dist.collectives", "repro_torch.launch.mesh",
-            "repro_torch.launch.specs", "repro_torch.train.elastic"} <= set(mods)
+            "repro_torch.launch.specs", "repro_torch.train.elastic",
+            "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
+            "repro_torch.launch.profile_cell", "repro_torch.examples",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.serve_routed",
+            "repro_torch.examples.train_lm",
+            "repro_torch.examples.elastic_restart"} <= set(mods)
     assert len(mods) > 20
     code = "\n".join([
         "import importlib, sys",

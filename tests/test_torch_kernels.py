@@ -243,11 +243,19 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
 
 
 def test_wrappers_refuse_other_devices():
-    q = torch.empty((1, 4, 2, 32), device="meta")
+    """A device other than cpu, cuda and meta (the dry run's; shapes only)
+    is refused before anything else is read: a stand-in that has only a
+    ``device`` stands for a tensor on such a device here."""
+    class OnMps:
+        device = torch.device("mps")
+
+    q = OnMps()
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
-        decode_attention(q[:, 0], q, q, torch.empty((1,), device="meta"))
+        decode_attention(q, q, q, q)
+    m = torch.empty((1, 4, 2, 32), device="meta")
+    assert flash_attention(m, m, m).device.type == "meta"
 
 
 def test_bridge_bf16_roundtrip_is_bit_exact():

@@ -720,16 +720,6 @@ def test_loop_microbatches_and_launcher(capsys):
 
 
 # ------------------------------------------------- the profile's busy time
-def _chip_smoke():
-    import importlib.util
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("intervals, want", [
     ([(0.0, 4.0), (2.0, 6.0)], 6.0),                  # a known overlap
     ([(0.0, 10.0), (2.0, 3.0), (4.0, 9.5)], 10.0),    # nested intervals
@@ -738,10 +728,12 @@ def _chip_smoke():
     ([], 0.0),
 ], ids=["overlap", "nested", "disjoint", "touching", "none"])
 def test_busy_time_is_the_union_of_device_intervals(intervals, want):
-    """``chip_smoke.busy_ms``: the device is busy for the union of its
+    """``launch.profile_cell.busy_ms`` (the profiles of ``chip_smoke.py``
+    and the per-cell profiler): the device is busy for the union of its
     events' spans, so a copy on a side stream under a kernel counts once
     (their sum would count it twice and can exceed the wall)."""
-    assert _chip_smoke().busy_ms(intervals) == pytest.approx(want)
+    from repro_torch.launch.profile_cell import busy_ms
+    assert busy_ms(intervals) == pytest.approx(want)
 
 
 # --------------------------------------------------------------- on the card

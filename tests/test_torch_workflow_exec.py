@@ -6,7 +6,8 @@ the reference's train step run as the same workflow through the reference's
 executor.
 
 ``chip_smoke.py``'s workflow phases run the same graphs and bodies on the
-card (imported from there, so the CPU run here rehearses them). Tests marked
+card (the quickstart's from ``repro_torch.examples.quickstart``, the epoch's
+from ``chip_smoke.py``; the CPU run here rehearses them). Tests marked
 ``gpu`` decide inside a fixture whether there is a card and skip here.
 """
 
@@ -35,6 +36,7 @@ from repro_torch.configs import get_smoke
 from repro_torch.core.prefetch import PrefetchEngine
 from repro_torch.data.pipeline import SyntheticCorpus
 from repro_torch.data.pipeline import epoch_workflow as t_epoch
+from repro_torch.examples import quickstart as QS
 from repro_torch.models import make_trainable
 from repro_torch.train.loop import TrainConfig, train
 from repro_torch.train.optimizer import OptConfig, init_opt_state
@@ -150,7 +152,7 @@ def test_quickstart_graph_with_torch_bodies_matches_numpy():
     the node that ran it."""
     rng = np.random.default_rng(0)
     raw = rng.standard_normal(1 << 16).astype(np.float32)
-    ex, res = CS.run_quickstart(torch, torch.from_numpy(raw), CPU,
+    ex, res = QS.run_quickstart(torch.from_numpy(raw), CPU,
                                 lambda node: CPU)
     half = raw.size // 2
     want = float(np.abs(np.fft.rfft(raw[:half]).real.astype(np.float32)).sum()
@@ -160,8 +162,8 @@ def test_quickstart_graph_with_torch_bodies_matches_numpy():
     assert sorted(res.task_records) == ["fft_a", "fft_b", "merge", "split"]
     node = res.task_records["split"]["node"]
     assert ex.store.stat("a").real_loc == ex.store.stat("b").real_loc == node
-    graph = CS.quickstart_workflow(T).graph
-    assert graph.data["raw"].size_bytes == CS.QUICKSTART_BYTES
+    graph = QS.quickstart_workflow().graph
+    assert graph.data["raw"].size_bytes == QS.RAW_BYTES
 
 
 # ----------------------------------------------------------- the device path
@@ -448,8 +450,8 @@ def test_taken_copy_outlives_the_engine_until_the_read_runs_on_card(cuda):
 def test_quickstart_on_card_matches_cpu_bodies(cuda):
     raw = torch.from_numpy(np.random.default_rng(0).standard_normal(
         1 << 20).astype(np.float32)).pin_memory()
-    _, cpu = CS.run_quickstart(torch, raw, CPU, None)
-    ex, res = CS.run_quickstart(torch, raw, cuda, lambda node: cuda)
+    _, cpu = QS.run_quickstart(raw, CPU)
+    ex, res = QS.run_quickstart(raw, cuda, lambda node: cuda)
     assert res.outputs["out"] == pytest.approx(cpu.outputs["out"],
                                                rel=CS.QUICKSTART_RTOL)
     assert ex.store.stat("a").real_loc == res.task_records["split"]["node"]
