@@ -106,13 +106,21 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    new_err against g, and its device time and wire bytes beside a bf16
    all-reduce of the same tree); that state saved in the reference's format
    and restored with ``elastic_restore`` onto the mesh, bit for bit with
-   ``param_specs``' placements; and the host cost of the ``hint`` and
+   ``param_specs``' placements; the sharded step (``dist_tp``):
+   granite-3-2b (4 layers) through ``shard_model``, two AdamW steps of
+   8 x 4096 in 2 microbatches, a prefill of 4 x 1024 and 8 decode steps on
+   DTensors bit for bit against the unmeshed run, K1 / K2 launches equal
+   (16 a step, 4 a prefill, K2 4 a decode step), a decode step's host wall
+   DTensor against plain, and deepseek-v3's gradient once more through
+   ``shard_model`` (``run_sharded``), bit for bit against the unmeshed one;
+   and the host cost of the ``hint`` and
    ``tp_divides`` sites in one granite-3-2b decode step (``hint_sites``);
    (before it, 11a and 11b:)
 11a. the launch phase (``launch_phase``): ``python -m
    repro_torch.launch.dryrun --arch granite-3-2b --mesh pod1`` as a
    subprocess (a fake 512-rank group on meta tensors), its three records
-   ``ok``; then ``repro_torch.launch.profile_cell`` on cuda:0 for each of
+   ``ok`` with the sharded step's per-device fields printed beside the
+   data rank's; then ``repro_torch.launch.profile_cell`` on cuda:0 for each of
    those cells at published width and depth, one data rank's batch:
    train_4k (16 x 4096, the recipe's 2 microbatches), prefill_32k (B2,
    max_seq 32768), decode_32k (B8 over a 32,768-row cache); K1 160 a train
@@ -2370,9 +2378,9 @@ def moe_paths():
     orig = (moe._moe_ffn_global, moe._moe_ffn_sharded)
 
     def counted(name, fn):
-        def wrapper(*a):
+        def wrapper(*a, **k):
             calls[name] += 1
-            return fn(*a)
+            return fn(*a, **k)
         return wrapper
 
     moe._moe_ffn_global = counted("global", orig[0])
@@ -2468,7 +2476,8 @@ def dist_deepseek(torch, kern, mesh) -> dict:
 
     a = run(False)
     b = run(True)
-    for label, r in (("unmeshed", a), ("meshed", b)):
+    c = run_sharded(torch, cfg, model, batch, mesh, kern, whole)
+    for label, r in (("unmeshed", a), ("meshed", b), ("sharded", c)):
         print(f"  {label}: loss {r['loss']!r}; K1 launches {r['k1']}, K2 "
               f"{r['k2']}; MoE "
               f"paths {r['calls']}; {r['wall_s']:.3f}s; peak "
@@ -2519,8 +2528,25 @@ def dist_deepseek(torch, kern, mesh) -> dict:
     need(bits or worst <= tol,
          f"dist deepseek: meshed gradient differs beyond {tol} ({worst} at "
          f"{worst_name})")
+    same_c = [n for n in names if a["fp"][n] == c["fp"][n]]
+    same_c_host = [n for n in whole if torch.equal(a["host"][n],
+                                                   c["host"][n])]
+    print(f"  sharded (shard_model, DTensors) vs unmeshed: loss "
+          f"{'equal' if a['loss'] == c['loss'] else 'differs'}; fingerprints "
+          f"equal on {len(same_c)}/{len(names)} leaves, whole leaves equal "
+          f"{len(same_c_host)}/{len(whole)}; K1 {c['k1']}", flush=True)
+    need(a["loss"] == c["loss"] and len(same_c) == len(names)
+         and len(same_c_host) == len(whole) and c["k1"] == k1_design
+         and c["calls"] == {"global": 0, "sharded": n_moe},
+         f"dist deepseek: the sharded gradient differs from the unmeshed "
+         f"one (loss {c['loss']} vs {a['loss']}; leaves "
+         f"{[n for n in names if n not in same_c][:5]}; K1 {c['k1']}; MoE "
+         f"paths {c['calls']})")
     del model, params, batch
-    return {"loss": [a["loss"], b["loss"]], "held": held,
+    return {"loss": [a["loss"], b["loss"], c["loss"]], "held": held,
+            "sharded_bit_identical": True, "sharded_grad_wall_s": c["wall_s"],
+            "tp_launches": {"flash_attention": c["k1"],
+                            "decode_attention": c["k2"]},
             "bit_identical": bits, "worst": worst,
             "k1_launches": [a["k1"], b["k1"]], "moe_paths": b["calls"],
             "grad_wall_s": [a["wall_s"], b["wall_s"]],
@@ -2528,6 +2554,41 @@ def dist_deepseek(torch, kern, mesh) -> dict:
             "leaves": len(names), "whole_leaves": len(whole),
             "launches": {"flash_attention": b["k1"],
                          "decode_attention": b["k2"]}}
+
+
+def run_sharded(torch, cfg, model, batch, mesh, kern, whole) -> dict:
+    """deepseek's loss and gradient once more with ``model`` sharded in
+    place by ``shard_model`` (on the 1x1 mesh each DTensor's shard is the
+    whole weight: no copy) and the batch placed by ``batch_specs``: the
+    gradient's leaves fingerprinted as ``dist_deepseek``'s runs."""
+    from repro_torch.dist.sharding import shard_batch, shard_model
+    from repro_torch.models import model as M
+    flash, decode = kern["flash"], kern["decode"]
+    shard_model(cfg, model, mesh)
+    names, params = zip(*model.named_parameters())
+    placed = shard_batch(cfg, batch, mesh)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    flash.launches = 0
+    decode.launches = 0
+    t0 = time.perf_counter()
+    with moe_paths() as calls, M.sharded_pass(model):
+        loss, _ = M.loss_fn(cfg, model, placed)
+        grads = torch.autograd.grad(loss, params)
+        grads = [g.redistribute(mesh, p.placements).to_local()
+                 for g, p in zip(grads, params)]
+    torch.cuda.synchronize()
+    out = {"loss": loss.full_tensor().item(), "k1": flash.launches,
+           "k2": decode.launches, "calls": dict(calls),
+           "wall_s": time.perf_counter() - t0,
+           "peak": torch.cuda.max_memory_allocated(),
+           "fp": {n: fingerprint(torch, g, SEED + i)
+                  for i, (n, g) in enumerate(zip(names, grads))},
+           "host": {n: g.cpu() for n, g in zip(names, grads) if n in whole}}
+    del loss, grads, params
+    free_cuda(torch)
+    return out
 
 
 def events_ms(torch, fn, reps: int = 5) -> float:
@@ -2722,6 +2783,144 @@ def dist_granite(torch, kern, mesh) -> dict:
                          "decode_attention": b["k2"][-1]}}
 
 
+# the sharded step's check: granite at published width, depth cut to 4, two
+# AdamW steps of 8 x 4096 in 2 microbatches, a prefill of 4 x 1024 and 8
+# decode steps, sharded (DTensors) and unmeshed
+DIST_TP = dict(arch="granite-3-2b", layers=4, B=8, S=4096, microbatches=2,
+               steps=2, prefill_B=4, prefill_S=1024, decode_steps=8)
+
+
+def dist_tp(torch, kern, mesh) -> dict:
+    """The sharded step (``shard_model``: DTensor params and activations, K1
+    and K2 under ``local_map``) on the 1x1 NCCL mesh against the unmeshed
+    run of the same seeds: granite's losses, params, moments, prefill
+    logits and every decode step's logits bit for bit, K1 / K2 launches
+    equal (16 a train step, 4 a prefill, K2 4 a decode step); the decode
+    step's host wall, DTensor against plain."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.dist.sharding import shard_model
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import (make_prefill_step,
+                                              make_serve_step,
+                                              make_train_step)
+    spec = DIST_TP
+    cfg = dataclasses.replace(get_config(spec["arch"]),
+                              n_layers=spec["layers"])
+    B, S, mb, steps = spec["B"], spec["S"], spec["microbatches"], \
+        spec["steps"]
+    Bp, Sp, n_dec = spec["prefill_B"], spec["prefill_S"], \
+        spec["decode_steps"]
+    oc = OptConfig(warmup_steps=10, total_steps=steps)
+    flash, decode = kern["flash"], kern["decode"]
+    want = {"train": (2 * cfg.n_layers * mb, 0), "prefill": (cfg.n_layers, 0),
+            "decode": (0, cfg.n_layers)}
+    print(f"[dist] tp: {cfg.name} at published width, depth cut to "
+          f"{cfg.n_layers}: {steps} AdamW steps of {B} x {S} in {mb} "
+          f"microbatches, a prefill of {Bp} x {Sp} and {n_dec} decode steps, "
+          f"sharded by shard_model on the 1x1 mesh and unmeshed; launches "
+          f"designed {want}", flush=True)
+    it = SyntheticCorpus(cfg.vocab, seed=SEED).batches(B, S)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+               for _ in range(steps)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab, (Bp, Sp), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab, (n_dec, Bp, 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        flash.launches = 0
+        decode.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (flash.launches, decode.launches), \
+            time.perf_counter() - t0
+
+    def run(sharded: bool) -> dict:
+        model = M.make_trainable(cfg, M.init_params(cfg, SEED, device="cuda"))
+        if sharded:
+            shard_model(cfg, model, mesh)
+        opt = init_opt_state(oc, dict(model.named_parameters()))
+        step = make_train_step(cfg, oc, microbatches=mb)
+        out = {"losses": [], "launches": {}, "walls": {}}
+        for i, b in enumerate(batches):
+            (_, opt, m), n, w = counted(lambda: step(model, opt, b))
+            out["losses"].append(m["loss"].item())
+            out["launches"][f"train{i}"], out["walls"][f"train{i}"] = n, w
+        out["params"] = {k: whole(p.detach()).cpu()
+                         for k, p in model.named_parameters()}
+        out["moments"] = {k: (whole(opt["m"][k]).cpu(),
+                              whole(opt["v"][k]).cpu()) for k in opt["m"]}
+        del opt
+        free_cuda(torch)
+        (logits, state), n, w = counted(
+            lambda: make_prefill_step(cfg, Sp + n_dec)(model,
+                                                       {"tokens": prompt}))
+        out["launches"]["prefill"], out["walls"]["prefill"] = n, w
+        out["logits"] = [whole(logits).cpu()]
+        serve = make_serve_step(cfg)
+        for i in range(n_dec):
+            (logits, state), n, w = counted(lambda: serve(model, state,
+                                                          toks[i]))
+            out["logits"].append(whole(logits).cpu())
+            out["launches"][f"decode{i}"], out["walls"][f"decode{i}"] = n, w
+        del model, state, logits
+        free_cuda(torch)
+        return out
+
+    a = run(False)
+    b = run(True)
+    bad = [k for k in a["params"] if not torch.equal(a["params"][k],
+                                                     b["params"][k])
+           or not all(torch.equal(x, y) for x, y in zip(a["moments"][k],
+                                                        b["moments"][k]))]
+    bad_logits = [i for i, (x, y) in enumerate(zip(a["logits"], b["logits"]))
+                  if not torch.equal(x, y)]
+    dec_a = [a["walls"][f"decode{i}"] * 1e3 for i in range(1, n_dec)]
+    dec_b = [b["walls"][f"decode{i}"] * 1e3 for i in range(1, n_dec)]
+    host = {"plain_ms": sum(dec_a) / len(dec_a),
+            "dtensor_ms": sum(dec_b) / len(dec_b)}
+    for label, r in (("unmeshed", a), ("sharded", b)):
+        print(f"  {label}: losses {r['losses']!r}; launches "
+              f"{r['launches']}; walls (s) "
+              f"{ {k: round(v, 4) for k, v in r['walls'].items()} }",
+              flush=True)
+    print(f"  sharded vs unmeshed: losses "
+          f"{'equal' if a['losses'] == b['losses'] else 'differ'}; params "
+          f"and moments bit-identical on {len(a['params']) - len(bad)}/"
+          f"{len(a['params'])} leaves; prefill and decode logits "
+          f"bit-identical on {len(a['logits']) - len(bad_logits)}/"
+          f"{len(a['logits'])}; a decode step's wall (steps 2..{n_dec}, "
+          f"synchronised) {host['plain_ms']:.3f} ms plain, "
+          f"{host['dtensor_ms']:.3f} ms on DTensors on {card_line()}",
+          flush=True)
+    need(a["losses"] == b["losses"] and not bad and not bad_logits,
+         f"dist tp: the sharded run differs from the unmeshed run (losses "
+         f"{a['losses']} vs {b['losses']}; leaves {bad[:5]}; logits "
+         f"{bad_logits})")
+    need(all(math.isfinite(x) for x in b["losses"]),
+         f"dist tp: losses {b['losses']}")
+    for r in (a, b):
+        for k, n in r["launches"].items():
+            kind = "decode" if k.startswith("decode") else \
+                "prefill" if k == "prefill" else "train"
+            need(n == want[kind], f"dist tp: launches at {k} {n} != "
+                 f"{want[kind]}")
+    return {"losses": b["losses"], "launches_per_phase": b["launches"],
+            "walls_s": b["walls"], "unmeshed_walls_s": a["walls"],
+            "decode_host_ms": host,
+            "launches": {"flash_attention": b["launches"]["prefill"][0],
+                         "decode_attention": b["launches"]["decode0"][1]}}
+
+
 def dist_phase(torch, kern) -> dict:
     """The dist phase on a one-rank NCCL group and a ("data", "model") 1x1
     DeviceMesh on cuda:0; the group is destroyed when it ends."""
@@ -2752,11 +2951,17 @@ def dist_phase(torch, kern) -> dict:
         free_cuda(torch)
         print(f"[dist] granite done in {time.perf_counter() - t0:.1f}s",
               flush=True)
+        t0 = time.perf_counter()
+        tp = dist_tp(torch, kern, mesh)
+        free_cuda(torch)
+        print(f"[dist] tp done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
     finally:
         dist.destroy_process_group()
     sites = hint_sites(torch)
     free_cuda(torch)
-    res = {"deepseek": deepseek, "granite": granite, "hint_sites": sites}
+    res = {"deepseek": deepseek, "granite": granite, "tp": tp,
+           "hint_sites": sites}
     print("  " + json.dumps(res), flush=True)
     return res
 
@@ -2812,15 +3017,23 @@ def launch_phase(torch, kern) -> dict:
     for shape in LAUNCH_SHAPES:
         r = recs[shape]
         print(f"[launch] dryrun {shape}: per device arguments "
-              f"{r['argument_size_in_bytes']:,} B, outputs "
-              f"{r['output_size_in_bytes']:,} B; one data rank (batch "
-              f"{r['batch_per_data_rank']}): dot_flops "
-              f"{r['dot_flops_per_data_rank']:.6e}, collectives "
+              f"{r['argument_size_in_bytes']:,} B (the sharded step's rank "
+              f"0 holds {r['device_argument_bytes']:,} B), outputs "
+              f"{r['output_size_in_bytes']:,} B; per device (sharded step, "
+              f"tp_on_activations {r['tp_on_activations']}): dot_flops "
+              f"{r['dot_flops_per_device']:.6e}, result bytes "
+              f"{r['result_bytes_per_device']:.6e}, collectives "
               f"{r['collective_total']:,.0f} B in {r['collective_count']}, "
-              f"activation peak {r['activation_peak_bytes']:,} B, one-card "
+              f"activation peak {r['activation_peak_bytes']:,} B, "
+              f"fits_h100_80gb {r['fits_h100_80gb']}; one data rank (batch "
+              f"{r['batch_per_data_rank']}, unsharded): dot_flops "
+              f"{r['dot_flops_per_data_rank']:.6e}, activation peak "
+              f"{r['data_rank_activation_peak_bytes']:,} B, one-card "
               f"estimate {r['one_card_estimate_bytes'] / 2**30:.2f} GiB; "
-              f"fits_h100_80gb {r['fits_h100_80gb']} (upper bound); "
               f"{r['seconds']}s", flush=True)
+        need(r["device_argument_bytes"] == r["argument_size_in_bytes"]
+             and r["tp_on_activations"] and r["dot_flops_per_device"] > 0,
+             f"dry run {shape}: the sharded step's record {r}")
     card = card_line()
     res = {"dryrun_s": dry_s}
     for shape in LAUNCH_SHAPES:
@@ -2855,9 +3068,11 @@ def launch_phase(torch, kern) -> dict:
         need(p["finite"], f"launch {shape}: the step's output is not finite")
         p["dryrun"] = {k: r[k] for k in (
             "argument_size_in_bytes", "output_size_in_bytes",
-            "dot_flops_per_data_rank", "activation_peak_bytes",
-            "one_card_estimate_bytes", "data_rank_argument_bytes",
-            "seconds")}
+            "dot_flops_per_data_rank", "dot_flops_per_device",
+            "result_bytes_per_device", "activation_peak_bytes",
+            "data_rank_activation_peak_bytes", "collective_total",
+            "fits_h100_80gb", "one_card_estimate_bytes",
+            "data_rank_argument_bytes", "seconds")}
         res[shape] = p
         free_cuda(torch)
     return res
@@ -3117,6 +3332,8 @@ def main(argv: list[str]) -> int:
     dist_res = dist_phase(torch, kern)
     by_path["dist deepseek-v3-671b"] = dist_res["deepseek"]["launches"]
     by_path["dist granite-3-2b"] = dist_res["granite"]["launches"]
+    by_path["dist tp granite-3-2b"] = dist_res["tp"]["launches"]
+    by_path["dist tp deepseek-v3-671b"] = dist_res["deepseek"]["tp_launches"]
     free_cuda(torch)
     print(f"[dist] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
 

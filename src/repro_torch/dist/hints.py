@@ -18,14 +18,17 @@ a shape: primary roles claim their axes first, sequence roles then sweep up
 what is left, each axis at most once and only where it divides the dim.
 
 PyTorch runs eagerly and has no compiler to constrain: under rules,
-:func:`hint` redistributes a DTensor to the resolved placements and passes a
-plain tensor through unchanged (its rank is still checked).
+:func:`hint` redistributes a DTensor to the resolved placements (and its
+gradient likewise) and passes a plain tensor through unchanged (its rank is
+still checked).
 """
 
 from __future__ import annotations
 
 import contextlib
 from typing import Any
+
+import torch
 
 from repro_torch.dist import sharding as shd
 
@@ -125,6 +128,22 @@ def hint(x, *roles):
         return x
     from torch.distributed.tensor import DTensor
     if isinstance(x, DTensor):
-        return x.redistribute(x.device_mesh,
-                              shd.placements(x.device_mesh, spec))
+        return _Constrain.apply(x, tuple(shd.placements(x.device_mesh, spec)))
     return x
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, and its cotangent
+    constrained the same way, as XLA transposes a sharding constraint
+    (DTensor's own redistribute returns the cotangent to the input's
+    placements: a partial sum's, which the next matmul's backward then
+    cannot split)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements), None

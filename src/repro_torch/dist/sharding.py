@@ -374,3 +374,120 @@ def distribute(tree: Pytree, mesh, specs: Pytree) -> Pytree:
                                   stride=_contiguous_strides(t.shape))
 
     return _zip_map(place, tree, specs)
+
+
+# ------------------------------------------------------------ sharded step
+# families whose step runs on DTensors; zamba2's and rwkv's scans have no
+# hint sites and stay on each rank's plain tensors
+SHARDED_FAMILIES = ("dense", "localglobal", "encdec", "vlm", "moe")
+
+
+def mesh_of(t) -> Any:
+    """A DTensor's DeviceMesh, else None."""
+    from torch.distributed.tensor import DTensor
+    return t.device_mesh if isinstance(t, DTensor) else None
+
+
+def shard_model(cfg: ModelConfig, model: torch.nn.Module, mesh
+                ) -> torch.nn.Module:
+    """Swap every parameter of ``model`` for a DTensor on ``mesh`` placed by
+    :func:`named_param_specs` (each rank keeps its block: no
+    communication), in place; returns ``model``. Its steps then run on
+    DTensor activations (``models.model``). Buffers stay plain tensors."""
+    if cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family has "
+                                  "no sharded step")
+    specs = named_param_specs(cfg, mesh)
+    for name, p in list(model.named_parameters()):
+        *path, leaf = name.split(".")
+        owner = model.get_submodule(".".join(path))
+        owner._parameters[leaf] = torch.nn.Parameter(
+            distribute(p.detach(), mesh, specs[name]),
+            requires_grad=p.requires_grad)
+    return model
+
+
+def shard_batch(cfg: ModelConfig, batch: Pytree, mesh) -> Pytree:
+    """A batch of whole tensors as DTensors placed by :func:`batch_specs`."""
+    return distribute(batch, mesh, batch_specs(cfg, batch, mesh))
+
+
+def shard_state(cfg: ModelConfig, state: Pytree, mesh) -> Pytree:
+    """A decode state of whole tensors as DTensors placed by
+    :func:`decode_state_specs`."""
+    return distribute(state, mesh, decode_state_specs(cfg, state, mesh))
+
+
+def zeros_state(cfg: ModelConfig, template: Pytree, mesh, device) -> Pytree:
+    """Zeros on ``device`` in the layout of ``template`` (a decode state on
+    the meta device), each leaf a DTensor placed by
+    :func:`decode_state_specs` whose rank allocates only its block."""
+    from torch.distributed.tensor import DTensor
+
+    def place(t, spec):
+        spec = P(*spec) + P(*([None] * (t.ndim - len(spec))))
+        local = local_block(t, mesh, spec)
+        return DTensor.from_local(
+            torch.zeros(local.shape, dtype=t.dtype, device=device), mesh,
+            placements(mesh, spec), run_check=False, shape=t.shape,
+            stride=_contiguous_strides(t.shape))
+
+    return _zip_map(place, template,
+                    decode_state_specs(cfg, template, mesh))
+
+
+def local_offset(t, dim: int) -> int:
+    """Where this rank's block of the DTensor ``t`` starts along ``dim``."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    _, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return int(offset[dim])
+
+
+def shards(x, dim: int) -> int:
+    """Into how many blocks the DTensor ``x``'s ``dim`` is cut."""
+    n = 1
+    for size, pl in zip(x.device_mesh.shape, x.placements):
+        if getattr(pl, "dim", None) == dim:
+            n *= size
+    return n
+
+
+def gather_dim(x, dim: int):
+    """The DTensor ``x`` with ``dim`` whole on every rank (its other
+    placements kept); ``x`` itself where ``dim`` is not split."""
+    from torch.distributed.tensor import Replicate
+    if shards(x, dim) == 1:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if getattr(pl, "dim", None) == dim else pl
+        for pl in x.placements])
+
+
+def local_along(like, x, dims) -> torch.Tensor:
+    """The DTensor ``x`` redistributed to ``like``'s placements on its
+    ``dims`` and replicated on every other mesh dim, as a local tensor:
+    the part of ``x`` that meets this rank's block of ``like`` there."""
+    from torch.distributed.tensor import Replicate
+    pl = [p if getattr(p, "dim", None) in dims else Replicate()
+          for p in like.placements]
+    return x.redistribute(like.device_mesh, pl).to_local()
+
+
+def attention_layout(mesh, B: int, Hq: int, Hkv: int, Sq: int | None):
+    """Where an attention op's dims go so that each rank computes its part
+    alone: (q's spec entries for batch, rows, heads; K/V's heads entry).
+    The batch on the DP axes, the query heads on "model" where they divide
+    it, the query rows (``Sq`` given: the flash op) on what is left where
+    they divide; K/V's heads on "model" only beside the query heads and
+    where they divide."""
+    used: set = set()
+    tp = tp_axis(mesh)
+    b = _fit(mesh, B, dp_axes(mesh), used)
+    h = _fit(mesh, Hq, (tp,), used) if tp else None
+    s = None
+    if Sq is not None:
+        s = _fit(mesh, Sq, ((tp,) if tp else ()) + dp_axes(mesh), used)
+    kvh = h if h is not None and Hkv % axis_size(mesh, h) == 0 else None
+    return b, s, h, kvh

@@ -19,6 +19,17 @@ so the count sees the kernel's own work on every device: a CUDA kernel
 dispatches no aten op, and the plain version on the CPU would count its
 masked square.
 
+On DTensor inputs (the sharded step, ``dist.sharding.shard_model``) each op
+first redistributes its inputs to what the kernel can compute on one rank:
+the batch on the data-parallel axes, the query heads on "model" where they
+divide it (else the query rows take it, with ``q_offset`` at the rank's
+first row), K/V's rows and the decode cache's rows whole (gathered), their
+heads on "model" only where both head counts divide it. Then
+``torch.distributed.tensor.experimental.local_map`` runs the wrapper (or
+``FlashAttentionFunction`` under autograd) on each rank's local shard, which
+gets exactly the kv heads its query heads read (the GQA group kept), and the
+observer sees that local call. Mixed DTensor and plain inputs raise.
+
 ``window_slice`` is the reference's decode-side cut of the cache for
 sliding-window layers, kept with the same slice and lengths. The decode
 kernel does not need it (its key loop starts at the window's first live row),
@@ -30,8 +41,10 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (FlashAttentionFunction,
@@ -62,6 +75,14 @@ def attention_op(q, k, v, *, causal: bool = True, window: int = 0,
                  q_offset: int = 0, softmax_scale: float | None = None,
                  impl: str = "kernel"):
     _check_impl(impl)
+    if _sharded(q, k, v):
+        return _sharded_attention(q, k, v, causal, window, q_offset,
+                                  softmax_scale, impl)
+    return _local_attention(q, k, v, causal, window, q_offset, softmax_scale,
+                            impl)
+
+
+def _local_attention(q, k, v, causal, window, q_offset, softmax_scale, impl):
     obs = observer()
     if obs is not None:
         return obs.flash(functools.partial(
@@ -84,12 +105,118 @@ def decode_attention_op(q, k_cache, v_cache, lengths, *, window: int = 0,
                         softmax_scale: float | None = None,
                         impl: str = "kernel"):
     _check_impl(impl)
+    if _sharded(q, k_cache, v_cache, lengths):
+        return _sharded_decode(q, k_cache, v_cache, lengths, window,
+                               softmax_scale, impl)
+    return _local_decode(q, k_cache, v_cache, lengths, window, softmax_scale,
+                         impl)
+
+
+def _local_decode(q, k_cache, v_cache, lengths, window, softmax_scale, impl):
     fn = ref.decode_attention_ref if impl == "plain" else decode_attention
     run = functools.partial(fn, q, k_cache, v_cache, lengths, window=window,
                             softmax_scale=softmax_scale)
     obs = observer()
     return run() if obs is None else obs.decode(run, q, k_cache, v_cache,
                                                 lengths, window)
+
+
+# ---------------------------------------------------------- DTensor inputs
+def _sharded(*ts) -> bool:
+    """True where every input is a DTensor, False where none is."""
+    n = sum(isinstance(t, DTensor) for t in ts)
+    if 0 < n < len(ts):
+        raise TypeError("attention op: mixed DTensor and plain tensor inputs")
+    return n > 0
+
+
+def _grad_placements(q_pl, kv_pl) -> tuple:
+    """K/V's gradient placements: a partial sum over every mesh dim that
+    splits the queries but not K/V (each rank's queries read every key)."""
+    from torch.distributed.tensor import Partial, Replicate
+    return tuple(Partial() if isinstance(b, Replicate)
+                 and not isinstance(a, Replicate) else b
+                 for a, b in zip(q_pl, kv_pl))
+
+
+def _kv_heads(k: torch.Tensor, Hq: int, h0: int, hq: int) -> torch.Tensor:
+    """The kv heads that query heads [h0, h0 + hq) of Hq read, from all of
+    k's (…, Hkv, hd) heads: a run of whole groups, or the one group they
+    sit in (the local group size is then hq), else k expanded to one kv
+    head per query head."""
+    G = Hq // k.shape[-2]
+    if h0 % G == 0 and hq % G == 0:
+        return k[..., h0 // G:(h0 + hq) // G, :].contiguous()
+    if h0 // G == (h0 + hq - 1) // G:
+        return k[..., h0 // G:h0 // G + 1, :].contiguous()
+    return torch.repeat_interleave(k, G, dim=-2)[..., h0:h0 + hq, :] \
+        .contiguous()
+
+
+def _to(x, mesh, spec):
+    return x.redistribute(mesh, shd.placements(mesh, spec))
+
+
+def _sharded_attention(q, k, v, causal, window, q_offset, softmax_scale,
+                       impl):
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    B, Sq, Hq, _ = q.shape
+    Hkv = k.shape[2]
+    b, s, h, kvh = shd.attention_layout(mesh, B, Hq, Hkv, Sq)
+    q_spec, kv_spec = shd.P(b, s, h, None), shd.P(b, None, kvh, None)
+    q, k, v = _to(q, mesh, q_spec), _to(k, mesh, kv_spec), \
+        _to(v, mesh, kv_spec)
+    q_pl, kv_pl = tuple(q.placements), tuple(k.placements)
+    h0, row0 = shd.local_offset(q, 2), shd.local_offset(q, 1)
+    pick = h is not None and kvh is None
+
+    def local(ql, kl, vl):
+        if pick:
+            kl, vl = (_kv_heads(kl, Hq, h0, ql.shape[2]),
+                      _kv_heads(vl, Hq, h0, ql.shape[2]))
+        return _local_attention(ql.contiguous(), kl.contiguous(),
+                                vl.contiguous(), causal, window,
+                                q_offset + row0, softmax_scale, impl)
+
+    kv_grad = _grad_placements(q_pl, kv_pl)
+    return local_map(local, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh)(q, k, v)
+
+
+def _sharded_decode(q, k_cache, v_cache, lengths, window, softmax_scale,
+                    impl):
+    """K2 on each rank's batch rows and query heads against the whole
+    cache rows: a cache whose rows are sharded is gathered (the rank's
+    softmax is not merged across ranks)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    B, Hq, _ = q.shape
+    Hkv = k_cache.shape[2]
+    b, _, h, kvh = shd.attention_layout(mesh, B, Hq, Hkv, None)
+    kv_spec = shd.P(b, None, kvh, None)
+    q = _to(q, mesh, shd.P(b, h, None))
+    k_cache, v_cache = _to(k_cache, mesh, kv_spec), _to(v_cache, mesh,
+                                                        kv_spec)
+    lengths = _to(lengths, mesh, shd.P(b))
+    q_pl, kv_pl = tuple(q.placements), tuple(k_cache.placements)
+    h0 = shd.local_offset(q, 1)
+    pick = h is not None and kvh is None
+
+    def local(ql, kl, vl, ll):
+        if pick:
+            kl, vl = (_kv_heads(kl, Hq, h0, ql.shape[1]),
+                      _kv_heads(vl, Hq, h0, ql.shape[1]))
+        return _local_decode(ql.contiguous(), kl.contiguous(),
+                             vl.contiguous(), ll.contiguous(), window,
+                             softmax_scale, impl)
+
+    return local_map(local, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl,
+                                    tuple(lengths.placements)),
+                     device_mesh=mesh)(q, k_cache, v_cache, lengths)
 
 
 def window_slice(cache: torch.Tensor, lengths: torch.Tensor, window: int,

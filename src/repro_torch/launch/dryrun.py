@@ -21,16 +21,31 @@ compiler to ask, so for each cell this module
      matmul FLOPs, collectives, result bytes) and the peak of the bytes its
      own tensors held at once.
 
-The port runs no tensor parallelism on activations: the "model" axis splits
-params, optimizer state and caches, not the activations, so every model rank
-of a data rank runs the whole data rank's step (the sharded MoE's experts
-are the exception: each rank runs its own expert range). The record says so
-(``tp_on_activations: false``); no FLOP figure divides by the model axis,
-and XLA's FLOP accounting is not imitated. ``fits_h100_80gb`` compares the
-argument bytes per device plus the step's activation peak with 80 GiB: an
-upper bound on the activations, which are the data rank's whole; the peak
-counts the storages the step's tensors hold at once, not the blocks a
-card's caching allocator keeps (``fits_note``).
+For the families with a sharded step (``dist.sharding.SHARDED_FAMILIES``:
+dense, localglobal, encdec, vlm, moe) the cell's step runs a second time
+as the reference compiles it: at the global batch, its params sharded by
+``shard_model``, the batch and decode state placed by their spec trees, the
+activations DTensors redistributed at every hint site
+(``tp_on_activations: true``). The counter sees one device's work there
+(rank 0 of the fake group): ``dot_flops_per_device``,
+``result_bytes_per_device``, the collectives DTensor issues at their
+per-device bytes, and ``activation_peak_bytes``, the most bytes one
+device's own tensors held at once. ``device_argument_bytes`` (what rank 0's
+inputs hold) equals ``argument_size_in_bytes``. ``fits_h100_80gb`` compares
+the argument bytes per device plus that peak with 80 GiB; the peak counts
+storages, not the blocks a card's caching allocator keeps (``fits_note``).
+With causal attention sharded on query rows, rank 0 holds the first rows,
+the fewest visible pairs.
+
+Every cell also runs one data rank's whole step, unsharded: the model axis
+splits nothing of its activations (the sharded MoE's experts are the
+exception), and ``dot_flops_per_data_rank`` and
+``result_bytes_per_data_rank`` count it (``profile_cell`` holds the card's
+count to it). zamba2's and rwkv's scans have no hint sites and no sharded
+step: their records keep ``tp_on_activations: false``, and their
+collectives and ``activation_peak_bytes`` are the data rank's, an upper
+bound on a device's. ``one_card_estimate_bytes`` is the data rank's whole
+step on one card (its arguments and ``data_rank_activation_peak_bytes``).
 
 A decode step reads lengths from its state, which meta tensors do not hold:
 a decode cell's sequences are taken as full (``live_rows`` = the cell's
@@ -65,9 +80,12 @@ from repro_torch.launch import specs as S
 from repro_torch.train.optimizer import OptConfig
 
 H100_BYTES = 80 * 2**30
-FITS_NOTE = ("upper bound on the activations (a data rank's whole: no TP on "
-             "activations); a card's caching allocator is not counted "
-             "(PERF.md, section 6)")
+FITS_NOTE = {True: ("one device's activation peak (the sharded step); a "
+                    "card's caching allocator is not counted (PERF.md, "
+                    "section 6)"),
+             False: ("upper bound on the activations (a data rank's whole: "
+                     "no TP on activations); a card's caching allocator is "
+                     "not counted (PERF.md, section 6)")}
 MESHES = {"pod1": ((16, 16), ("data", "model")),
           "pod2": ((2, 16, 16), ("pod", "data", "model"))}
 FAKE_WORLD = 512
@@ -216,13 +234,17 @@ class CellStep:
 
 def cell_step(cfg: ModelConfig, shape: InputShape, B: int, *, mesh=None,
               device: str | torch.device = "meta", seed: int = 0,
-              microbatches: int | None = None) -> CellStep:
+              microbatches: int | None = None,
+              sharded: bool = False) -> CellStep:
     """The cell's step at a batch of ``B`` on ``device`` (meta: shapes only;
     else random weights from ``seed`` and seeded inputs). The train step
     takes the recipe's microbatches (or ``microbatches``) and, on a
     ``mesh``, ``grad_specs``; the decode step runs at position S - 1 of
     every sequence (the caches full, seeded), each call from the same
-    state."""
+    state. ``sharded`` (with a ``mesh``) runs the sharded step: ``B`` is
+    the global batch, the model is ``shard_model``'s, the inputs DTensors
+    placed by their spec trees, and ``argument_bytes`` counts this rank's
+    shards."""
     from repro_torch.models import model as M
     from repro_torch.train.optimizer import init_opt_state
     from repro_torch.train.train_step import (make_prefill_step,
@@ -230,6 +252,8 @@ def cell_step(cfg: ModelConfig, shape: InputShape, B: int, *, mesh=None,
                                               make_train_step)
     dev = torch.device(device)
     model = M.init_params(cfg, seed, device=dev)
+    if sharded:
+        model = shd.shard_model(cfg, model, mesh)
     Sq = shape.seq_len
     gen = None if dev.type == "meta" else torch.Generator(device=dev)
     if gen is not None:
@@ -252,17 +276,20 @@ def cell_step(cfg: ModelConfig, shape: InputShape, B: int, *, mesh=None,
                 b[key].normal_(generator=gen)
         return b
 
+    def place(b):
+        return shd.shard_batch(cfg, b, mesh) if sharded else b
+
     if shape.kind == "train":
         mb, acc = microbatches_for(cfg, shape)
         mb = microbatches or mb
         oc = opt_config_for(cfg)
         model = M.make_trainable(cfg, model)
         opt = {"state": init_opt_state(oc, dict(model.named_parameters()))}
-        grad_specs = None if mesh is None else \
+        grad_specs = None if mesh is None or sharded else \
             shd.named_param_specs(cfg, mesh)
         step = make_train_step(cfg, oc, microbatches=mb, accum_dtype=acc,
                                grad_specs=grad_specs)
-        data = batch()
+        data = place(batch())
 
         def run():
             _, opt["state"], metrics = step(model, opt["state"], data)
@@ -270,7 +297,7 @@ def cell_step(cfg: ModelConfig, shape: InputShape, B: int, *, mesh=None,
         return CellStep(run, model, _held(model, opt["state"], data))
     if shape.kind == "prefill":
         step = make_prefill_step(cfg, Sq)
-        data = batch()
+        data = place(batch())
         return CellStep(lambda: step(model, data), model, _held(model, data))
     step = make_serve_step(cfg)
     state = M.init_decode_state(cfg, B, Sq, device=dev)
@@ -280,15 +307,34 @@ def cell_step(cfg: ModelConfig, shape: InputShape, B: int, *, mesh=None,
             if t.is_floating_point():
                 t.normal_(generator=gen)
     tok = tokens(B, 1)
+    if sharded:
+        state = shd.shard_state(cfg, state, mesh)
+        tok = place({"tokens": tok})["tokens"]
     return CellStep(lambda: step(model, state, tok), model,
                     _held(model, state, tok), Sq)
 
 
 def _held(model: torch.nn.Module, *trees) -> int:
-    """Bytes of the model's weights and of the tensors in ``trees``."""
-    return sum(p.numel() * p.element_size() for p in model.parameters()) \
-        + sum(t.numel() * t.element_size() for t in _leaves(list(trees))
+    """Bytes of the model's weights and of the tensors in ``trees`` (a
+    DTensor's: this rank's shard)."""
+    def nbytes(t):
+        t = getattr(t, "_local_tensor", t)
+        return t.numel() * t.element_size()
+    return sum(nbytes(p) for p in model.parameters()) \
+        + sum(nbytes(t) for t in _leaves(list(trees))
               if isinstance(t, torch.Tensor))
+
+
+def _record(rec: dict, a: dict) -> None:
+    """The collectives, the activation peak and the fit of the step whose
+    count is ``a``: one device's (the sharded step) or the data rank's."""
+    rec["collectives"] = a["collective_bytes"]
+    rec["collective_total"] = a["collective_total"]
+    rec["collective_count"] = a["collective_count"]
+    rec["activation_peak_bytes"] = a["peak_live_bytes"]
+    rec["fits_h100_80gb"] = rec["argument_size_in_bytes"] \
+        + a["peak_live_bytes"] <= H100_BYTES
+    rec["fits_note"] = FITS_NOTE[rec["tp_on_activations"]]
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
@@ -302,14 +348,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     from repro_torch.launch import op_analysis
     from repro_torch.launch.mesh import init_fake_group, make_production_mesh
     rec: dict[str, Any] = {"arch": arch, "shape": shape_name,
-                           "mesh": mesh_kind, "kind": None, "ok": False,
-                           "tp_on_activations": False}
+                           "mesh": mesh_kind, "kind": None, "ok": False}
     t0 = time.time()
     started = not dist.is_initialized()
     try:
         cfg = get_config(arch)
         shape = SHAPES[shape_name]
         rec["kind"] = shape.kind
+        tp = cfg.family in shd.SHARDED_FAMILIES
+        rec["tp_on_activations"] = tp
         if started:
             init_fake_group(FAKE_WORLD)
         mesh = make_production_mesh(multi_pod=(mesh_kind == "pod2"))
@@ -327,21 +374,29 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                 a = op_analysis.analyze(cell.run, params=cell.model,
                                         live_rows=cell.live_rows)
                 rec["dot_flops_per_data_rank"] = a["dot_flops"]
-                rec["collectives"] = a["collective_bytes"]
-                rec["collective_total"] = a["collective_total"]
-                rec["collective_count"] = a["collective_count"]
                 rec["result_bytes_per_data_rank"] = a["result_bytes"]
                 rec["n_ops"] = a["n_ops"]
-                rec["activation_peak_bytes"] = a["peak_live_bytes"]
-                peak = rec["argument_size_in_bytes"] \
-                    + a["peak_live_bytes"]
-                rec["fits_h100_80gb"] = peak <= H100_BYTES
-                rec["fits_note"] = FITS_NOTE
+                rec["data_rank_activation_peak_bytes"] = a["peak_live_bytes"]
                 # one card running the data rank's whole step (profile_cell)
                 rec["one_card_estimate_bytes"] = cell.argument_bytes \
                     + a["peak_live_bytes"]
+                if not tp:
+                    _record(rec, a)
             else:
                 cell.run()
+            del cell
+            if tp:
+                cell = cell_step(cfg, shape, shape.global_batch, mesh=mesh,
+                                 sharded=True)
+                rec["device_argument_bytes"] = cell.argument_bytes
+                if collect_ops:
+                    a = op_analysis.analyze(cell.run, params=cell.model,
+                                            live_rows=cell.live_rows)
+                    rec["dot_flops_per_device"] = a["dot_flops"]
+                    rec["result_bytes_per_device"] = a["result_bytes"]
+                    _record(rec, a)
+                else:
+                    cell.run()
         rec["ok"] = True
     except Exception as e:  # noqa: BLE001 — recorded, cell marked failed
         rec["error"] = f"{type(e).__name__}: {e}"

@@ -23,6 +23,12 @@ where their meaning carries over:
                          updates, as the reference counts a
                          dynamic-update-slice's whole result.
 
+On DTensors (the sharded step) every count is one device's: the counter
+declines each DTensor-level op (its shapes are global) and counts the ops
+DTensor then runs on this rank's local shards and the collectives of its
+redistributions, leaving out the meta-tensor runs of its sharding
+propagation; the kernel ops report their local calls (``kernels.ops``).
+
 ``n_while`` is dropped: there is no loop to multiply, each layer's ops are
 counted as they run. :func:`top_dots` and :func:`top_collectives` group the
 ops by where they come from (the parameter they read, with the layer index
@@ -48,6 +54,7 @@ each cache's length) instead.
 
 from __future__ import annotations
 
+import os
 import re
 import sys
 import weakref
@@ -55,6 +62,7 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.distributed.tensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -118,6 +126,22 @@ def decode_work(case, lengths: list[int], itemsize: int
 
 
 # ------------------------------------------------------------ the counter
+_DTensor = torch.distributed.tensor.DTensor
+_PROPAGATION = os.path.join("tensor", "_sharding_prop.py")
+
+
+def _propagating() -> bool:
+    """Whether DTensor's sharding propagation is on the stack: it runs the
+    op on meta tensors of the global shapes to learn the output's, which
+    no device computes."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename.endswith(_PROPAGATION):
+            return True
+        f = f.f_back
+    return False
+
+
 def _tensors(tree) -> list[torch.Tensor]:
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
@@ -165,6 +189,7 @@ class OpCounter(TorchDispatchMode):
         self.peak_live_bytes = 0
         self._live: dict[int, int] = {}
         self._quiet = 0
+        self._sharded = False
 
     # -- the kernel ops' observer (``kernels.ops.observer``)
     observe_kernel_ops = True
@@ -243,9 +268,14 @@ class OpCounter(TorchDispatchMode):
         self.live_bytes -= self._live.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _DTensor in types:
+            # DTensor runs its local ops (and the collectives of its
+            # redistributions) on each rank's shards below: count those
+            self._sharded = True
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if self._quiet:
+        if self._quiet or (self._sharded and _propagating()):
             return out
         self.n_ops += 1
         packet = func._overloadpacket

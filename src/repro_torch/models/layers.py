@@ -20,8 +20,11 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.dist.hints import hint, tp_divides
+from repro_torch.dist.sharding import (gather_dim, local_along, local_offset,
+                                       shards)
 from repro_torch.kernels.ops import attention_op
 
 NEG_INF = -1e30
@@ -186,6 +189,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 # --------------------------------------------------------------------- GQA block
+def split_heads(x: torch.Tensor, H: int, hd: int) -> torch.Tensor:
+    """(…, H * hd) as (…, H, hd). A DTensor whose last dim is sharded into
+    a number of blocks that H does not divide is gathered along it first:
+    DTensor cannot cut a head across ranks (XLA reshards it silently)."""
+    if isinstance(x, DTensor) and H % shards(x, x.ndim - 1):
+        x = gather_dim(x, x.ndim - 1)
+    return x.reshape(*x.shape[:-1], H, hd)
+
+
+
 @dataclasses.dataclass(frozen=True)
 class AttnDims:
     d_model: int
@@ -204,13 +217,32 @@ def init_attn(gen: torch.Generator | None, dims: AttnDims, dtype,
             "wo": init_linear(gen, H * hd, d, dtype, scale=out_scale)}
 
 
+def merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(…, H, hd) as (…, H * hd). On a DTensor the gradient is split back
+    into heads through :func:`split_heads`, which gathers a dim whose
+    blocks would cut a head (DTensor's own view backward raises there)."""
+    if isinstance(o, DTensor):
+        return _MergeHeads.apply(o)
+    return o.reshape(*o.shape[:-2], -1)
+
+
+class _MergeHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, o):
+        ctx.heads = tuple(o.shape[-2:])
+        return o.reshape(*o.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, *ctx.heads)
+
+
 def cross_kv(p, kv_src: torch.Tensor,
              dims: AttnDims) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention keys and values of an encoder output / patch batch:
     (B, Sk, Hkv, hd) each, no rope."""
-    B, Sk, _ = kv_src.shape
-    k = (kv_src @ p["wk"]).reshape(B, Sk, dims.n_kv_heads, dims.hd)
-    v = (kv_src @ p["wv"]).reshape(B, Sk, dims.n_kv_heads, dims.hd)
+    k = split_heads(kv_src @ p["wk"], dims.n_kv_heads, dims.hd)
+    v = split_heads(kv_src @ p["wv"], dims.n_kv_heads, dims.hd)
     return k, v
 
 
@@ -219,13 +251,12 @@ def cross_attend(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The query side of cross attention against precomputed ``k``/``v``:
     no rope and no mask (the reference's zero positions with
     ``causal=False``), through the flash-attention op."""
-    B, S, _ = x.shape
-    q = hint((x @ p["wq"]).reshape(B, S, dims.n_heads, dims.hd),
+    q = hint(split_heads(x @ p["wq"], dims.n_heads, dims.hd),
              "dp", "sq", "tp", None)
     k = hint(k, "dp", "sp", "tp", None)
     v = hint(v, "dp", "sp", "tp", None)
     o = hint(attention_op(q, k, v, causal=False), "dp", "sq", "tp", None)
-    return o.reshape(B, S, dims.n_heads * dims.hd) @ p["wo"]
+    return merge_heads(o) @ p["wo"]
 
 
 def cross_attention_block(p, x: torch.Tensor, kv_src: torch.Tensor,
@@ -258,26 +289,142 @@ def mlp_block(p, x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ embedding
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+    """The token embeddings ``tok[tokens]``; a DTensor table goes through
+    :func:`_vocab_parallel_embed`."""
+    tok = p["tok"]
+    if isinstance(tok, DTensor):
+        return _vocab_parallel_embed(tokens, tok)
+    return tok[tokens]
+
+
+def _vocab_parallel_embed(tokens, tok):
+    """Megatron's vocab-parallel lookup: the table's model dim is gathered
+    (FSDP's weight gather) and its vocab shards kept; each rank looks up
+    the tokens in its rows (zeros elsewhere) on its batch shard, and the
+    output is a partial sum over the vocab ranks. Runs under ``local_map``
+    on plain local tensors: no DTensor strategy of an indexed read or of
+    its gradient (an accumulating ``index_put``, which has none that works
+    in some releases) is needed."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = tok.device_mesh
+    if not isinstance(tokens, DTensor):       # the same on every rank
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok = gather_dim(tok, 1)
+    lo = local_offset(tok, 0)
+    out_pl, grad_pl = [], []
+    for wp, tp in zip(tok.placements, tokens.placements):
+        vocab = getattr(wp, "dim", None) == 0
+        if vocab and not isinstance(tp, Replicate):
+            raise NotImplementedError("embedding: tokens sharded on the "
+                                      "vocab's mesh dim")
+        out_pl.append(Partial() if vocab else tp)
+        grad_pl.append(Partial() if not isinstance(tp, Replicate) else wp)
+
+    def local(t, w):
+        idx = t - lo
+        ok = (idx >= 0) & (idx < w.shape[0])
+        return w[idx.clamp(0, w.shape[0] - 1)] * ok[..., None].to(w.dtype)
+
+    return local_map(local, out_placements=(tuple(out_pl),),
+                     in_placements=(tuple(tokens.placements),
+                                    tuple(tok.placements)),
+                     in_grad_placements=(tuple(tokens.placements),
+                                         tuple(grad_pl)),
+                     device_mesh=mesh)(tokens, tok)
 
 
 def unembed(p, h: torch.Tensor) -> torch.Tensor:
+    """The logits ``h @ head`` (``tok.T`` when tied). A DTensor head's
+    contraction dim is gathered first (FSDP's weight gather), its vocab
+    shards kept, so the product splits the tokens and the vocab and no
+    rank holds all the tokens' logits."""
     w = p["head"] if "head" in p else p["tok"].T
+    if isinstance(w, DTensor):
+        w = gather_dim(w, 0)
     return h @ w
 
 
 # -------------------------------------------------------------------- losses
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  ignore_id: int = -1) -> torch.Tensor:
-    """Mean next-token cross entropy in f32; ``labels`` already shifted."""
+    """Mean next-token cross entropy in f32; ``labels`` already shifted.
+    Logits whose vocab is split across ranks (DTensor) take the
+    log-sum-exp spelled out (max, then the sum of exponentials), which
+    reduces across the ranks instead of gathering the logits, and the gold
+    logit picked on each rank's own columns (:func:`_vocab_parallel_pick`);
+    both partial sums are all-reduced onto the rows' placements (a
+    reduce-scatter over the rows would carry their gradients back through
+    an all-to-all of the vocab-wide ones)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None].long())[..., 0]
+    idx = labels.clamp(min=0)[..., None].long()
+    if isinstance(lf, DTensor):
+        last = lf.ndim - 1
+        rows = [Replicate() if getattr(p, "dim", None) == last else p
+                for p in lf.placements]
+        if shards(lf, last) > 1:
+            m = lf.amax(dim=-1, keepdim=True).detach()
+            se = torch.exp(lf - m).sum(dim=-1).redistribute(
+                lf.device_mesh, rows)
+            lse = torch.log(se) + m[..., 0]
+        else:
+            lse = torch.logsumexp(lf, dim=-1)
+        gold = _vocab_parallel_pick(lf, idx).redistribute(lf.device_mesh,
+                                                          rows)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, idx)[..., 0]
     mask = (labels != ignore_id).float()
     return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
+def _vocab_parallel_pick(lf, idx):
+    """``lf``'s value at column ``idx`` (…, 1) of each row, each rank
+    picking from its own vocab columns (zero elsewhere): a partial sum over
+    the vocab ranks, under ``local_map``."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = lf.device_mesh
+    last = lf.ndim - 1
+    idx = idx.redistribute(mesh, [Replicate() if getattr(pl, "dim", None)
+                                  == last else pl for pl in lf.placements])
+    lo = local_offset(lf, last)
+    out_pl = tuple(Partial() if getattr(pl, "dim", None) == last else pl
+                   for pl in lf.placements)
+
+    def local(x, i):
+        j = i - lo
+        ok = (j >= 0) & (j < x.shape[-1])
+        return (torch.gather(x, -1, j.clamp(0, x.shape[-1] - 1))
+                * ok.to(x.dtype))[..., 0]
+
+    return local_map(local, out_placements=(out_pl,),
+                     in_placements=(tuple(lf.placements),
+                                    tuple(idx.placements)),
+                     in_grad_placements=(tuple(lf.placements),
+                                         tuple(idx.placements)),
+                     device_mesh=mesh)(lf, idx)
+
+
 # ---------------------------------------------------------------- kv caches
+def write_rows(cache: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``cache[:, :S] = x`` for ``x`` (B, S, ...), IN PLACE: on a DTensor
+    cache each rank writes the rows of ``x`` that fall in its block of the
+    cache's rows. Returns the cache."""
+    S = x.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, :S] = x
+        return cache
+    off = local_offset(cache, 1)
+    local = cache.to_local()
+    lo, hi = max(off, 0), min(off + local.shape[1], S)
+    if hi > lo:
+        xl = local_along(cache, x, set(range(x.ndim)) - {1})
+        local[:, lo - off:hi - off] = xl[:, lo:hi]
+    return cache
+
+
 def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor,
                  pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -288,12 +435,26 @@ def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
     A row whose ``pos`` lies outside ``[0, S)`` is dropped, as JAX drops an
     out-of-range scatter (an idle serving slot's position runs past the
     cache). The write is branch-free and never synchronises with the device:
-    an out-of-range row rewrites the value already at its clamped index.
+    an out-of-range row rewrites the value already at its clamped index. On
+    DTensor caches each rank writes into its block of the rows, at ``pos``
+    less the block's first row.
     """
+    if isinstance(cache_k, DTensor):
+        off = local_offset(cache_k, 1)
+        rest = set(range(k.ndim)) - {1}
+        _update_rows(cache_k.to_local(), cache_v.to_local(),
+                     local_along(cache_k, k, rest),
+                     local_along(cache_v, v, rest),
+                     local_along(cache_k, pos, {0}) - off)
+        return cache_k, cache_v
+    _update_rows(cache_k, cache_v, k, v, pos)
+    return cache_k, cache_v
+
+
+def _update_rows(cache_k, cache_v, k, v, pos) -> None:
     B, S = cache_k.shape[:2]
     bidx = torch.arange(B, device=cache_k.device)
     ok = ((pos >= 0) & (pos < S)).reshape((B,) + (1,) * (k.ndim - 2))
     idx = pos.clamp(0, S - 1).long()
     cache_k[bidx, idx] = torch.where(ok, k[:, 0], cache_k[bidx, idx])
     cache_v[bidx, idx] = torch.where(ok, v[:, 0], cache_v[bidx, idx])
-    return cache_k, cache_v

@@ -25,7 +25,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.hints import hint
 from repro_torch.kernels.ops import attention_op
 from repro_torch.models.layers import (NEG_INF, apply_rope, cache_update,
-                                       init_linear, rms_norm)
+                                       init_linear, merge_heads, rms_norm,
+                                       split_heads)
 
 
 def init_mla(gen: torch.Generator | None, cfg: ModelConfig, dtype,
@@ -53,9 +54,8 @@ def init_mla(gen: torch.Generator | None, cfg: ModelConfig, dtype,
 
 def _queries(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
     m, H = cfg.mla, cfg.n_heads
-    B, S, _ = x.shape
     cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["wq_b"]).reshape(B, S, H, m.qk_head_dim)
+    q = split_heads(cq @ p["wq_b"], H, m.qk_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -79,7 +79,7 @@ def mla_attention(cfg: ModelConfig, p, x: torch.Tensor,
     q_nope, q_rope = _queries(cfg, p, x, positions)
     c_kv, k_rope = latents if latents is not None \
         else _latents(cfg, p, x, positions)
-    kv = (c_kv @ p["wkv_b"]).reshape(B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    kv = split_heads(c_kv @ p["wkv_b"], H, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kv.split([m.qk_nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
@@ -91,7 +91,7 @@ def mla_attention(cfg: ModelConfig, p, x: torch.Tensor,
     o = hint(attention_op(q, k, v, causal=True,
                           softmax_scale=m.qk_head_dim ** -0.5),
              "dp", "sq", "tp", None)
-    return o[..., :m.v_head_dim].reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    return merge_heads(o[..., :m.v_head_dim]) @ p["wo"]
 
 
 def mla_prefill_cache(cfg: ModelConfig, p, x: torch.Tensor,
@@ -127,8 +127,7 @@ def mla_decode(cfg: ModelConfig, p, x: torch.Tensor, cache: dict,
                                 kr_new.to(cache["k_rope"].dtype), pos)
 
     # absorb W_uk into the query: q~_h = q_nope_h @ W_uk_h  -> latent space
-    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, H,
-                               m.qk_nope_head_dim + m.v_head_dim)
+    wkv_b = split_heads(p["wkv_b"], H, m.qk_nope_head_dim + m.v_head_dim)
     w_uk = wkv_b[:, :, :m.qk_nope_head_dim]              # (c, H, nope)
     w_uv = wkv_b[:, :, m.qk_nope_head_dim:]              # (c, H, v)
     q_lat = torch.einsum("bhd,chd->bhc", q_nope[:, 0], w_uk)

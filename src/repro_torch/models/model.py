@@ -9,7 +9,7 @@ Public surface, mirroring ``repro.models.model``:
   prefill(cfg, model, batch, max_seq)   -> (last_logits, decode_state)
   init_decode_state(cfg, batch, max_seq, device) -> decode_state
   decode_step(cfg, model, state, tok)   -> (logits, decode_state)
-  param_count(cfg)
+  param_count(cfg), active_param_count(cfg)
 
 Batches are ``{"tokens": (B, S), "labels": (B, S)}`` plus ``"frames": (B,
 n_frames, d)`` for encdec and ``"patches": (B, n_patches, d)`` for vlm (the
@@ -62,14 +62,18 @@ kernel at every step, at each of its application points.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.hints import hint, tp_divides
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.hints import get_rules, hint, sharding_rules, tp_divides
 from repro_torch.kernels.ops import attention_op, decode_attention_op
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -78,9 +82,10 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (AttnDims, apply_rope, cache_update,
                                        cross_attend, cross_kv, embed_tokens,
                                        init_attn, init_linear, init_mlp,
-                                       mlp_block, rms_norm,
-                                       softmax_xent, uniform_scale_init,
-                                       unembed)
+                                       merge_heads, mlp_block, rms_norm,
+                                       softmax_xent, split_heads,
+                                       uniform_scale_init, unembed,
+                                       write_rows)
 
 DENSE_FAMILIES = ("dense", "localglobal")
 FAMILIES = DENSE_FAMILIES + ("encdec", "vlm", "moe", "hybrid", "rwkv")
@@ -187,21 +192,20 @@ def _attn_prefill(cfg: ModelConfig, attn, hn: torch.Tensor,
     """Causal GQA self attention of a whole sequence, projected back to d.
     With ``kv=(ck, cv)`` (B, S_max, Hkv, hd) the rotated keys and the values
     are written into ``[:, :S]``."""
-    B, S, _ = hn.shape
-    q = (hn @ attn["wq"]).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = (hn @ attn["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (hn @ attn["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    q = split_heads(hn @ attn["wq"], cfg.n_heads, cfg.hd)
+    k = split_heads(hn @ attn["wk"], cfg.n_kv_heads, cfg.hd)
+    v = split_heads(hn @ attn["wv"], cfg.n_kv_heads, cfg.hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if kv is not None:
-        kv[0][:, :S] = k
-        kv[1][:, :S] = v
+        write_rows(kv[0], k)
+        write_rows(kv[1], v)
     q = hint(q, "dp", "sq", "tp", None)
     k = hint(k, "dp", "sp", "tp", None)
     v = hint(v, "dp", "sp", "tp", None)
     o = hint(attention_op(q, k, v, causal=True, window=window),
              "dp", "sq", "tp", None)
-    return o.reshape(B, S, -1) @ attn["wo"]
+    return merge_heads(o) @ attn["wo"]
 
 
 def _attn_decode(cfg: ModelConfig, attn, hn: torch.Tensor, ck: torch.Tensor,
@@ -210,9 +214,9 @@ def _attn_decode(cfg: ModelConfig, attn, hn: torch.Tensor, ck: torch.Tensor,
     """One decode position of GQA self attention: the new K/V row is written
     into ``ck``/``cv`` (B, S, Hkv, hd) in place, then attended."""
     B = hn.shape[0]
-    q = (hn @ attn["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
-    k = (hn @ attn["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
-    v = (hn @ attn["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
+    q = split_heads(hn @ attn["wq"], cfg.n_heads, cfg.hd)
+    k = split_heads(hn @ attn["wk"], cfg.n_kv_heads, cfg.hd)
+    v = split_heads(hn @ attn["wv"], cfg.n_kv_heads, cfg.hd)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     cache_update(ck, cv, k, v, pos)
@@ -232,15 +236,21 @@ def _hint_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor):
             hint(cv, "dp", "seq", None, None))
 
 
+def _res(h: torch.Tensor) -> torch.Tensor:
+    """The residual stream after a sublayer: the batch over DP, the rest
+    replicated unless Megatron-SP is on. On DTensors a row-parallel
+    output's partial sum is reduced here, once, as XLA reduces it."""
+    return hint(h, "dp", "sp_seq", None)
+
+
 def _dense_layer(cfg: ModelConfig, p, h: torch.Tensor, positions,
                  window: int = 0, kv=None) -> torch.Tensor:
     """One GQA decoder layer over a whole sequence (the reference's
     ``_gqa_layer``)."""
-    h = h + _attn_prefill(cfg, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
-                          positions, window, kv)
-    h = hint(h, "dp", "sp_seq", None)     # Megatron-SP residual (opt-in)
-    h = h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
-    return hint(h, "dp", "sp_seq", None)
+    h = _res(h + _attn_prefill(cfg, p["attn"],
+                               rms_norm(h, p["ln1"], cfg.norm_eps), positions,
+                               window, kv))
+    return _res(h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps)))
 
 
 def _embed(embed, tokens: torch.Tensor) -> torch.Tensor:
@@ -250,9 +260,10 @@ def _embed(embed, tokens: torch.Tensor) -> torch.Tensor:
 
 def _dense_layer_decode(cfg: ModelConfig, p, h: torch.Tensor, ck, cv, pos,
                         lengths, window: int = 0) -> torch.Tensor:
-    h = h + _attn_decode(cfg, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
-                         ck, cv, pos, lengths, window)
-    return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+    h = _res(h + _attn_decode(cfg, p["attn"],
+                              rms_norm(h, p["ln1"], cfg.norm_eps), ck, cv,
+                              pos, lengths, window))
+    return _res(h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps)))
 
 
 def _cross_decode(cfg: ModelConfig, attn, hx: torch.Tensor, xk: torch.Tensor,
@@ -261,8 +272,13 @@ def _cross_decode(cfg: ModelConfig, attn, hx: torch.Tensor, xk: torch.Tensor,
     encoder / patch K/V: every key is live (the reference's ``q_pos =
     F - 1``), so the decode kernel runs at full length for every row."""
     B = hx.shape[0]
-    q = (hx @ attn["wq"]).reshape(B, cfg.n_heads, cfg.hd)
+    q = split_heads(hx @ attn["wq"], cfg.n_heads, cfg.hd)[:, 0]
     full = torch.full((B,), xk.shape[1], dtype=torch.int32, device=hx.device)
+    if isinstance(xk, DTensor):       # the same on every rank
+        from torch.distributed.tensor import Replicate
+        full = DTensor.from_local(full, xk.device_mesh,
+                                  [Replicate()] * xk.device_mesh.ndim,
+                                  run_check=False)
     q, xk, xv = _hint_decode(q, xk, xv)
     o = decode_attention_op(q, xk, xv, full)
     return o.reshape(B, 1, -1) @ attn["wo"]
@@ -288,6 +304,23 @@ class _LM(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
+    @property
+    def mesh(self):
+        """The DeviceMesh of a sharded model (``dist.sharding.shard_model``),
+        else None."""
+        return shd.mesh_of(self.final_norm)
+
+    def _new_state(self, B: int, max_seq: int) -> dict:
+        """A zero decode state; a sharded model's is placed by
+        ``decode_state_specs``, each rank allocating its block."""
+        mesh = self.mesh
+        if mesh is None:
+            return init_decode_state(self.cfg, B, max_seq, device=self.device)
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():     # shapes only: nothing to count
+            template = init_decode_state(self.cfg, B, max_seq, device="meta")
+        return shd.zeros_state(self.cfg, template, mesh, self.device)
+
     def _final(self, h: torch.Tensor) -> torch.Tensor:
         return rms_norm(h, self.final_norm, self.cfg.norm_eps)
 
@@ -308,10 +341,30 @@ class _LM(nn.Module):
 
 
 def _run(remat: bool, fn, *args):
-    """``fn(*args)``, under per-layer recompute when ``remat``."""
+    """``fn(*args)``, under per-layer recompute when ``remat``. The
+    recompute runs under the rules of the forward and, where they bind a
+    DeviceMesh (a sharded pass), DTensor's implicit replication."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_replay)
     return fn(*args)
+
+
+def _replay():
+    """checkpoint's (forward, recompute) contexts: see :func:`_run`."""
+    rules = get_rules()
+    if rules is None:
+        return contextlib.nullcontext(), contextlib.nullcontext()
+    mesh, sp = rules["mesh"], rules["seq_parallel"]
+
+    @contextlib.contextmanager
+    def recompute():
+        with sharding_rules(mesh, seq_parallel=sp), \
+                (contextlib.nullcontext() if isinstance(mesh, shd.AbstractMesh)
+                 else implicit_replication()):
+            yield
+
+    return contextlib.nullcontext(), recompute()
 
 
 # ============================================================ dense / gemma3
@@ -344,7 +397,7 @@ class DenseLM(_LM):
     def prefill(self, tokens: torch.Tensor, max_seq: int):
         B, S = tokens.shape
         self._check_prompt(S, max_seq)
-        state = init_decode_state(self.cfg, B, max_seq, device=self.device)
+        state = self._new_state(B, max_seq)
         h = self.hidden(tokens, kv_out=(state["k"], state["v"]))
         state["pos"].fill_(S)
         return self._head(h[:, -1:]), state
@@ -376,17 +429,17 @@ class EncDecLM(_LM):
 
     def _enc_layer(self, p, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        B, F, _ = h.shape
         hn = rms_norm(h, p["ln1"], cfg.norm_eps)
-        q = (hn @ p["attn"]["wq"]).reshape(B, F, cfg.n_heads, cfg.hd)
-        k = (hn @ p["attn"]["wk"]).reshape(B, F, cfg.n_kv_heads, cfg.hd)
-        v = (hn @ p["attn"]["wv"]).reshape(B, F, cfg.n_kv_heads, cfg.hd)
+        q = split_heads(hn @ p["attn"]["wq"], cfg.n_heads, cfg.hd)
+        k = split_heads(hn @ p["attn"]["wk"], cfg.n_kv_heads, cfg.hd)
+        v = split_heads(hn @ p["attn"]["wv"], cfg.n_kv_heads, cfg.hd)
         q = hint(q, "dp", "sq", "tp", None)
         k = hint(k, "dp", "sp", "tp", None)
         v = hint(v, "dp", "sp", "tp", None)
         o = hint(attention_op(q, k, v, causal=False), "dp", "sq", "tp", None)
-        h = h + o.reshape(B, F, -1) @ p["attn"]["wo"]
-        return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+        h = _res(h + merge_heads(o) @ p["attn"]["wo"])
+        return _res(h + mlp_block(p["mlp"],
+                                  rms_norm(h, p["ln2"], cfg.norm_eps)))
 
     def encode(self, frames: torch.Tensor, *,
                remat: bool = False) -> torch.Tensor:
@@ -411,15 +464,18 @@ class EncDecLM(_LM):
         ``enc_out`` (its K/V computed here, and written into ``xkv`` when
         given), the MLP."""
         cfg, dims = self.cfg, _dims(self.cfg)
-        h = h + _attn_prefill(cfg, p["attn"], rms_norm(h, p["ln1"], cfg.norm_eps),
-                              positions, 0, kv)
+        h = _res(h + _attn_prefill(cfg, p["attn"],
+                                   rms_norm(h, p["ln1"], cfg.norm_eps),
+                                   positions, 0, kv))
         xk, xv = cross_kv(p["xattn"], enc_out, dims)
         if xkv is not None:
-            xkv[0].copy_(xk)
-            xkv[1].copy_(xv)
-        h = h + cross_attend(p["xattn"], rms_norm(h, p["lnx"], cfg.norm_eps),
-                             xk, xv, dims)
-        return h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+            write_rows(xkv[0], xk)
+            write_rows(xkv[1], xv)
+        h = _res(h + cross_attend(p["xattn"],
+                                  rms_norm(h, p["lnx"], cfg.norm_eps), xk, xv,
+                                  dims))
+        return _res(h + mlp_block(p["mlp"],
+                                  rms_norm(h, p["ln2"], cfg.norm_eps)))
 
     def hidden(self, tokens: torch.Tensor, frames: torch.Tensor, *,
                state: dict | None = None) -> torch.Tensor:
@@ -450,7 +506,7 @@ class EncDecLM(_LM):
         the prompt through the decoder building the self-attention cache."""
         B, S = tokens.shape
         self._check_prompt(S, max_seq)
-        state = init_decode_state(self.cfg, B, max_seq, device=self.device)
+        state = self._new_state(B, max_seq)
         h = self.hidden(tokens, frames, state=state)
         state["pos"].fill_(S)
         return self._head(h[:, -1:]), state
@@ -461,13 +517,15 @@ class EncDecLM(_LM):
         lengths = (pos + 1).to(torch.int32)
         h = _embed(self.embed, tokens)
         for li, p in enumerate(self.dec_blocks):
-            h = h + _attn_decode(cfg, p["attn"],
-                                 rms_norm(h, p["ln1"], cfg.norm_eps),
-                                 state["k"][li], state["v"][li], pos, lengths)
-            h = h + _cross_decode(cfg, p["xattn"],
-                                  rms_norm(h, p["lnx"], cfg.norm_eps),
-                                  state["xk"][li], state["xv"][li])
-            h = h + mlp_block(p["mlp"], rms_norm(h, p["ln2"], cfg.norm_eps))
+            h = _res(h + _attn_decode(cfg, p["attn"],
+                                      rms_norm(h, p["ln1"], cfg.norm_eps),
+                                      state["k"][li], state["v"][li], pos,
+                                      lengths))
+            h = _res(h + _cross_decode(cfg, p["xattn"],
+                                       rms_norm(h, p["lnx"], cfg.norm_eps),
+                                       state["xk"][li], state["xv"][li]))
+            h = _res(h + mlp_block(p["mlp"],
+                                   rms_norm(h, p["ln2"], cfg.norm_eps)))
         return self._head(self._final(h)), dict(state, pos=pos + 1)
 
 
@@ -490,9 +548,9 @@ class VisionLM(_LM):
     def _gated(self, xp, h: torch.Tensor, xo: torch.Tensor) -> torch.Tensor:
         """The cross layer's two gated residuals around its attention
         output ``xo``."""
-        h = h + torch.tanh(xp["gate"]).to(h.dtype) * xo
-        return h + torch.tanh(xp["gate_mlp"]).to(h.dtype) * mlp_block(
-            xp["mlp"], rms_norm(h, xp["ln2"], self.cfg.norm_eps))
+        h = _res(h + torch.tanh(xp["gate"]).to(h.dtype) * xo)
+        return _res(h + torch.tanh(xp["gate_mlp"]).to(h.dtype) * mlp_block(
+            xp["mlp"], rms_norm(h, xp["ln2"], self.cfg.norm_eps)))
 
     def _cross_layer(self, xp, h: torch.Tensor, patches: torch.Tensor,
                      xkv=None) -> torch.Tensor:
@@ -501,8 +559,8 @@ class VisionLM(_LM):
         cfg, dims = self.cfg, _dims(self.cfg)
         xk, xv = cross_kv(xp["attn"], patches, dims)
         if xkv is not None:
-            xkv[0].copy_(xk)
-            xkv[1].copy_(xv)
+            write_rows(xkv[0], xk)
+            write_rows(xkv[1], xv)
         xo = cross_attend(xp["attn"], rms_norm(h, xp["ln"], cfg.norm_eps),
                           xk, xv, dims)
         return self._gated(xp, h, xo)
@@ -535,7 +593,7 @@ class VisionLM(_LM):
                 patches: torch.Tensor):
         B, S = tokens.shape
         self._check_prompt(S, max_seq)
-        state = init_decode_state(self.cfg, B, max_seq, device=self.device)
+        state = self._new_state(B, max_seq)
         h = self.hidden(tokens, patches, state=state)
         state["pos"].fill_(S)
         return self._head(h[:, -1:]), state
@@ -582,9 +640,8 @@ class MoeLM(_LM):
             return _attn_prefill(cfg, attn, hn, positions, 0, cache)
         lat = mla_mod._latents(cfg, attn, hn, positions)
         if cache is not None:
-            S = hn.shape[1]
-            cache[0][:, :S] = lat[0]
-            cache[1][:, :S] = lat[1]
+            write_rows(cache[0], lat[0])
+            write_rows(cache[1], lat[1])
         return mla_mod.mla_attention(cfg, attn, hn, positions, latents=lat)
 
     def _ffn(self, p, h: torch.Tensor, moe: bool):
@@ -601,8 +658,8 @@ class MoeLM(_LM):
     def _layer(self, p, h, positions, moe: bool, cache=None):
         h = h + self._attn(p["attn"], rms_norm(h, p["ln1"], self.cfg.norm_eps),
                            positions, cache)
-        h, aux = self._ffn(p, hint(h, "dp", "sp_seq", None), moe)
-        return hint(h, "dp", "sp_seq", None), aux
+        h, aux = self._ffn(p, _res(h), moe)
+        return _res(h), aux
 
     def hidden(self, tokens: torch.Tensor, *, state: dict | None = None):
         """(final-normed hidden states, summed router aux loss)."""
@@ -648,7 +705,7 @@ class MoeLM(_LM):
     def prefill(self, tokens: torch.Tensor, max_seq: int):
         B, S = tokens.shape
         self._check_prompt(S, max_seq)
-        state = init_decode_state(self.cfg, B, max_seq, device=self.device)
+        state = self._new_state(B, max_seq)
         h, _ = self.hidden(tokens, state=state)
         state["pos"].fill_(S)
         return self._head(h[:, -1:]), state
@@ -668,7 +725,8 @@ class MoeLM(_LM):
                                               {"c_kv": c1, "k_rope": c2}, pos)
                 else:
                     o = _attn_decode(cfg, p["attn"], hn, c1, c2, pos, lengths)
-                h, _ = self._ffn(p, h + o, moe)
+                h, _ = self._ffn(p, _res(h + o), moe)
+                h = _res(h)
         return self._head(self._final(h)), dict(state, pos=pos + 1)
 
 
@@ -754,7 +812,7 @@ class HybridLM(_LM):
     def prefill(self, tokens: torch.Tensor, max_seq: int):
         B, S = tokens.shape
         self._check_prompt(S, max_seq)
-        state = init_decode_state(self.cfg, B, max_seq, device=self.device)
+        state = self._new_state(B, max_seq)
         h = self.hidden(tokens, state=state)
         state["pos"].fill_(S)
         return self._head(h[:, -1:]), state
@@ -830,7 +888,7 @@ class RwkvLM(_LM):
         """The stateful pass from a zero state; the state has no sequence
         axis, so ``max_seq`` sizes nothing (as in the reference)."""
         B, S = tokens.shape
-        state = init_decode_state(self.cfg, B, max_seq, device=self.device)
+        state = self._new_state(B, max_seq)
         h = self.hidden(tokens, state=state)
         state["pos"].fill_(S)
         return self._head(h[:, -1:]), state
@@ -970,21 +1028,64 @@ def make_trainable(cfg: ModelConfig, model: _LM) -> _LM:
     return model.requires_grad_(True)
 
 
+@contextlib.contextmanager
+def implicit_replication():
+    """DTensor's implicit replication of plain tensors, restored to what it
+    was on exit (``torch.distributed.tensor.experimental``'s clears it)."""
+    disp = DTensor._op_dispatcher
+    prev = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = prev
+
+
+def _mesh_context(mesh, rules=None) -> contextlib.ExitStack:
+    """``sharding_rules`` on ``mesh`` (``rules`` kept where active) and
+    implicit replication, entered on an ExitStack."""
+    stack = contextlib.ExitStack()
+    if rules is None:
+        stack.enter_context(sharding_rules(mesh))
+    elif rules["mesh"] != mesh:
+        raise RuntimeError("a sharded model runs under the rules of its own "
+                           "mesh")
+    stack.enter_context(implicit_replication())
+    return stack
+
+
+@contextlib.contextmanager
+def sharded_pass(model: _LM):
+    """What a pass of a sharded model (``dist.sharding.shard_model``) runs
+    under, its backward included: ``sharding_rules`` on its mesh (unless
+    rules are active) and DTensor's implicit replication of the plain
+    tensors the model makes (positions, masks, the sinusoid). Nothing for
+    an unsharded model."""
+    mesh = model.mesh
+    if mesh is None:
+        yield
+        return
+    with _mesh_context(mesh, get_rules()):
+        yield
+
+
 def loss_fn(cfg: ModelConfig, model: _LM, batch: dict):
     """Next-token cross entropy, the same in serving checks and in the
     train step (with grad, every layer is recomputed in the backward);
     the moe family adds its router aux and MTP terms, as the reference does.
     rwkv's pass starts from a zero state, as the reference's training
     pass."""
-    if cfg.family == "moe":
-        return model.loss(batch["tokens"], batch["labels"])
-    loss = softmax_xent(model(batch["tokens"], *_extras(cfg, batch)),
-                        batch["labels"])
+    with sharded_pass(model):
+        if cfg.family == "moe":
+            return model.loss(batch["tokens"], batch["labels"])
+        loss = softmax_xent(model(batch["tokens"], *_extras(cfg, batch)),
+                            batch["labels"])
     return loss, {"loss": loss}
 
 
 def prefill(cfg: ModelConfig, model: _LM, batch: dict, max_seq: int):
-    return model.prefill(batch["tokens"], max_seq, *_extras(cfg, batch))
+    with sharded_pass(model):
+        return model.prefill(batch["tokens"], max_seq, *_extras(cfg, batch))
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
@@ -1052,10 +1153,23 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 def decode_step(cfg: ModelConfig, model: _LM, state: dict,
                 tokens: torch.Tensor):
-    return model.decode_step(state, tokens)
+    with sharded_pass(model):
+        return model.decode_step(state, tokens)
 
 
 def param_count(cfg: ModelConfig) -> int:
     """Parameter count from the shapes alone (built on the meta device,
     nothing is allocated)."""
     return sum(p.numel() for p in init_params(cfg, device="meta").parameters())
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: only k routed experts active)."""
+    total = param_count(cfg)
+    if not cfg.is_moe:
+        return total
+    n_moe_layers = cfg.n_layers - cfg.first_dense_layers
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    inactive = (cfg.n_experts - cfg.experts_per_token) * per_expert \
+        * n_moe_layers
+    return total - int(inactive)

@@ -16,6 +16,10 @@ experts with a per-shard capacity, gathers its experts' FSDP shards over
 "data" and sums the experts' outputs over "model"; unmeshed, the global
 path runs, as in the reference.
 
+On DTensor activations (the sharded step) :func:`_moe_ffn_dtensor` runs the
+same per-rank body on each rank's local tokens and expert shards, and the
+shared expert on DTensors around it.
+
 Semantics kept from JAX: ``jax.lax.top_k`` puts the lower index first among
 equal probabilities — a stable descending sort does the same; the drop sink
 ``E * C - 1`` takes added zeros (``index_add_``, not a copy that would
@@ -30,6 +34,7 @@ import math
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import collectives as coll
@@ -69,9 +74,21 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor
     the routed experts run through :func:`_moe_ffn_sharded`; the global path
     below runs unmeshed and is the oracle of the tests."""
     r = hint_rules.get_rules()
+    if isinstance(x, DTensor):
+        return _moe_ffn_dtensor(cfg, p, x, r)
+    # the reference's other condition, tokens divisible over DP, holds by
+    # construction: ``x`` is already one DP shard
     if r is not None and r.get("mesh") is not None \
-            and not isinstance(r["mesh"], shd.AbstractMesh):
-        return _moe_ffn_sharded(cfg, p, x, r)
+            and not isinstance(r["mesh"], shd.AbstractMesh) \
+            and cfg.n_experts % (r["tp_size"] if r["tp"] else 1) == 0:
+        xt = x.reshape(-1, x.shape[-1])
+        out, aux = _moe_ffn_sharded(cfg, p, xt, r)
+        if r["dp"] and r["dp_size"] > 1:
+            aux = coll.MeanOverRanks.apply(
+                aux, [r["mesh"].get_group(a) for a in r["dp"]], r["dp_size"])
+        if "shared" in p:
+            out = out + _shared(p["shared"], xt)
+        return out.reshape(x.shape), aux
     return _moe_ffn_global(cfg, p, x)
 
 
@@ -135,9 +152,12 @@ def _moe_ffn_global(cfg: ModelConfig, p, x: torch.Tensor
     out = hint((picked * w[:, None]).reshape(T, k, d).sum(dim=1), "dp", None)
 
     if "shared" in p:
-        sp = p["shared"]
-        out = out + (F.silu(xt @ sp["w1"]) * (xt @ sp["w3"])) @ sp["w2"]
+        out = out + _shared(p["shared"], xt)
     return out.reshape(B, S, d), aux
+
+
+def _shared(sp, xt):
+    return (F.silu(xt @ sp["w1"]) * (xt @ sp["w3"])) @ sp["w2"]
 
 
 # ------------------------------------------------------------- sharded path
@@ -150,40 +170,35 @@ def _expert_shard(w, mesh, spec) -> torch.Tensor:
     return shd.local_block(w, mesh, spec)
 
 
-def _moe_ffn_sharded(cfg: ModelConfig, p, x: torch.Tensor, rules: dict
+def _moe_ffn_sharded(cfg: ModelConfig, p, xt: torch.Tensor, rules: dict
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Routed experts per mesh shard — the reference's shard_map path.
 
-    ``x`` is this rank's share of the tokens (its DP shard), the same on
+    ``xt`` (T, d) is this rank's share of the tokens (its DP shard), the same on
     every model rank; each rank routes its tokens, dispatches only to its
     own expert range ``[rank * E_loc, (rank + 1) * E_loc)`` with the
     per-shard capacity ``C_loc`` (the rest go to an overflow slot), gathers
     its experts' FSDP shards over "data" (in_specs ``(tp, None, "data")`` /
     ``(tp, "data", None)``), runs three ``bmm``s, and sums the experts'
-    outputs over "model". The aux loss is the mean over the DP axes.
+    outputs over "model". Returns the routed experts' output and this
+    rank's aux loss: the caller adds the shared expert and reduces the aux
+    over the DP axes. ``E`` must divide over "model".
 
     Gradients are those of the reference's single loss: the model-axis sum
     passes its cotangent through and the routing weights and dispatched
     tokens collect every model rank's contribution, so every rank holds the
     whole gradient of its replicated values and of its own expert shard;
-    over DP each rank's gradient is its tokens' share. Where ``E`` does not
-    divide over "model" the global path runs (the reference's other
-    condition, tokens divisible over DP, holds by construction: ``x`` is
-    already one DP shard)."""
+    over DP each rank's gradient is its tokens' share."""
     mesh = rules["mesh"]
     dp_axes = rules["dp"] or ()
     tp = rules["tp"]
     E, k = cfg.n_experts, cfg.experts_per_token
     tp_size = rules["tp_size"] if tp else 1
-    if E % tp_size != 0:
-        return _moe_ffn_global(cfg, p, x)
-    B, S, d = x.shape
-    Tl = B * S
+    Tl, d = xt.shape
     C_loc = _capacity(cfg, Tl)
     E_loc = E // tp_size
     # a collective over one rank is the identity: skip it
     model_group = mesh.get_group(tp) if tp_size > 1 else None
-    xt = x.reshape(Tl, d)
     topw, e_flat, pos_flat, aux = _route(cfg, p, xt)
 
     # this model rank dispatches only its expert range
@@ -197,9 +212,9 @@ def _moe_ffn_sharded(cfg: ModelConfig, p, x: torch.Tensor, rules: dict
         topw = coll.FromModel.apply(topw, model_group)
     else:
         xd = xt
-    src = torch.repeat_interleave(xd, k, dim=0) * keep[:, None].to(x.dtype)
-    disp = torch.zeros((E_loc * C_loc + 1, d), dtype=x.dtype,
-                       device=x.device).index_add(0, slot, src)
+    src = torch.repeat_interleave(xd, k, dim=0) * keep[:, None].to(xt.dtype)
+    disp = torch.zeros((E_loc * C_loc + 1, d), dtype=xt.dtype,
+                       device=xt.device).index_add(0, slot, src)
     disp = disp[:-1].reshape(E_loc, C_loc, d)
 
     # FSDP gather of the local experts' weights (its gradient: a
@@ -222,16 +237,61 @@ def _moe_ffn_sharded(cfg: ModelConfig, p, x: torch.Tensor, rules: dict
     yf = torch.cat([y.reshape(E_loc * C_loc, d),
                     torch.zeros((1, d), dtype=y.dtype, device=y.device)])
     picked = yf[slot]                                          # (Tl*k, d)
-    w = (topw.reshape(-1) * keep).to(x.dtype)
+    w = (topw.reshape(-1) * keep).to(xt.dtype)
     part = (picked * w[:, None]).reshape(Tl, k, d).sum(dim=1)
     out = coll.SumToModel.apply(part, model_group) if model_group is not None \
         else part                                              # combine experts
+    return out, aux
 
-    if dp_axes and rules["dp_size"] > 1:
-        aux = coll.MeanOverRanks.apply(aux, [mesh.get_group(a) for a in dp_axes],
-                                       rules["dp_size"])
 
-    if "shared" in p:
-        sp = p["shared"]
-        out = out + (F.silu(xt @ sp["w1"]) * (xt @ sp["w3"])) @ sp["w2"]
-    return out.reshape(B, S, d), aux
+def _moe_ffn_dtensor(cfg: ModelConfig, p, x, rules: dict
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_moe_ffn_sharded` on DTensors: ``x`` is redistributed to its
+    tokens over the DP axes (replicated over "model"), the per-rank body
+    runs on the local tokens, the replicated router and the local expert
+    shards, and its output and aux come back as DTensors (the tokens over
+    DP; aux replicated). The loss is one replicated value, so the aux mean
+    over DP passes each rank its cotangent over the DP size. The shared
+    expert runs on DTensors of the local tokens, its output replicated
+    over "model". Raises where the experts do not divide over "model" or
+    the batch over the DP axes (no global fallback)."""
+    from torch.distributed.tensor import Partial, Replicate
+    if rules is None or rules.get("mesh") != x.device_mesh:
+        raise RuntimeError("moe_ffn: DTensor activations need "
+                           "sharding_rules on their mesh")
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    if cfg.n_experts % rules["tp_size"] or B % max(rules["dp_size"], 1):
+        raise NotImplementedError(
+            f"moe_ffn: {cfg.n_experts} experts over {rules['tp_size']} model "
+            f"ranks, batch {B} over {rules['dp_size']} data ranks")
+    dp = rules["dp"] or ()
+    spec = shd.P(dp if len(dp) > 1 else (dp[0] if dp else None), None, None)
+    x = x.redistribute(mesh, shd.placements(mesh, spec))
+    router = p["router"].redistribute(mesh, [Replicate()] * mesh.ndim) \
+        .to_local(grad_placements=[Partial() if a in dp else Replicate()
+                                   for a in mesh.mesh_dim_names])
+    tp = rules["tp"]
+    routed = {"router": router}
+    for k, spec in (("w1", shd.P(tp, None, "data")),
+                    ("w3", shd.P(tp, None, "data")),
+                    ("w2", shd.P(tp, "data", None))):
+        routed[k] = p[k].redistribute(mesh, shd.placements(mesh, spec))
+    pl = x.placements
+    xt = x.to_local().reshape(-1, d)
+    out, aux = _moe_ffn_sharded(cfg, routed, xt, rules)
+    if dp and rules["dp_size"] > 1:   # one replicated loss: its cotangent
+        for a in dp:                  # reaches each rank once
+            aux = coll.SumToModel.apply(aux, mesh.get_group(a))
+        aux = aux / rules["dp_size"]
+    if "shared" in p:                 # on DTensors of the local tokens
+        xd = DTensor.from_local(xt, mesh, pl, run_check=False,
+                                shape=(B * S, d), stride=(d, 1))
+        out = out + _shared(p["shared"], xd).redistribute(mesh, pl) \
+            .to_local()
+    out = DTensor.from_local(out.reshape(x.to_local().shape), mesh, pl,
+                             run_check=False, shape=x.shape,
+                             stride=x.stride())
+    aux = DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
+                             run_check=False)
+    return out, aux

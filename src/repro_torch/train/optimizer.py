@@ -14,6 +14,10 @@ norm gain is ``(L, d)``, so the reference decays every per-layer norm gain
 (though its docstring says it does not) and only ``final_norm`` (and the
 other unstacked vectors) escape. The port keeps that for parity (ROADMAP.md,
 Queue 3).
+
+A sharded model's params (``dist.sharding.shard_model``) are DTensors: the
+moments take their placements and the update runs on each rank's block;
+the global norm is summed across the ranks by DTensor.
 """
 
 from __future__ import annotations
@@ -53,11 +57,18 @@ def init_opt_state(cfg: OptConfig, params: Tensors) -> dict:
     on the params' device)."""
     dt = getattr(torch, cfg.moment_dtype)
     dev = next(iter(params.values())).device
-    return {"m": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-                  for k, p in params.items()},
-            "v": {k: torch.zeros(p.shape, dtype=dt, device=p.device)
-                  for k, p in params.items()},
+    return {"m": {k: _zeros(p, dt) for k, p in params.items()},
+            "v": {k: _zeros(p, dt) for k, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def _zeros(p: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Zeros of ``p``'s shape in ``dt``, on its placements where ``p`` is a
+    DTensor (each rank holds its block)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=dt, requires_grad=False)
+    return torch.zeros(p.shape, dtype=dt, device=p.device)
 
 
 def global_norm(tree: Tensors) -> torch.Tensor:

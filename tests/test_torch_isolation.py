@@ -50,7 +50,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.examples.quickstart",
             "repro_torch.examples.serve_routed",
             "repro_torch.examples.train_lm",
-            "repro_torch.examples.elastic_restart"} <= set(mods)
+            "repro_torch.examples.elastic_restart",
+            "repro_torch.kernels.ops", "repro_torch.models.layers",
+            "repro_torch.models.model"} <= set(mods)
     assert len(mods) > 20
     code = "\n".join([
         "import importlib, sys",
@@ -66,6 +68,40 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_the_sharded_step_runs_with_jax_and_repro_blocked():
+    """The sharded step's entry points (``shard_model``, the placed state,
+    the kernel ops on DTensors) on a one-rank gloo mesh, in a process where
+    jax and the reference cannot be imported."""
+    code = "\n".join([
+        "import sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['repro'] = None",
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]",
+        "import torch",
+        "from repro_torch.configs import get_smoke",
+        "from repro_torch.dist.sharding import shard_model",
+        "from repro_torch.launch.mesh import make_local_mesh",
+        "from repro_torch.models import active_param_count, model as M",
+        "from repro_torch.train.train_step import make_prefill_step, "
+        "make_serve_step",
+        "cfg = get_smoke('granite-3-2b')",
+        "mesh = make_local_mesh(1, 1, device_type='cpu')",
+        "model = shard_model(cfg, M.init_params(cfg, 0, device='cpu'), mesh)",
+        "tok = torch.zeros((2, 8), dtype=torch.int32)",
+        "logits, state = make_prefill_step(cfg, 16)(model, {'tokens': tok})",
+        "step, _ = make_serve_step(cfg)(model, state, tok[:, :1])",
+        "assert type(step).__name__ == 'DTensor'",
+        "assert active_param_count(cfg) == M.param_count(cfg)",
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))",
+        "               for k in sys.modules if sys.modules[k] is not None)",
+        "print('ok')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
 
 

@@ -21,13 +21,15 @@ from repro.configs import get_smoke as jax_smoke
 from repro.models import decode_step as jax_decode_step
 from repro.models import init_params as jax_init_params
 from repro.models import layers as jl
+from repro.models import active_param_count as jax_active_param_count
 from repro.models import param_count as jax_param_count
 from repro.models import prefill as jax_prefill
 from repro_torch._bridge import (from_reference, state_from_reference,
                                  state_to_numpy, to_numpy, to_torch)
 from repro_torch.configs import ARCH_NAMES, get_smoke
-from repro_torch.models import (decode_step, init_decode_state, init_params,
-                                loss_fn, padded_vocab, param_count, prefill)
+from repro_torch.models import (active_param_count, decode_step,
+                                init_decode_state, init_params, loss_fn,
+                                padded_vocab, param_count, prefill)
 from repro_torch.models import layers as tl
 
 ARCHS = ["granite-3-2b", "gemma3-12b"]
@@ -140,6 +142,16 @@ def test_param_count_matches_reference(pair):
     jcfg, tcfg, _, model = pair
     assert param_count(tcfg) == jax_param_count(jcfg)
     assert sum(p.numel() for p in model.parameters()) == param_count(tcfg)
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_active_param_count_matches_reference(arch):
+    """The published configs' active params (MoE: k routed experts of E),
+    from shapes alone on both sides."""
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import get_config
+    assert active_param_count(get_config(arch)) == \
+        jax_active_param_count(jax_config(arch))
 
 
 def test_prefill_and_decode_match_reference(pair):
