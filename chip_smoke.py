@@ -113,6 +113,15 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    (16 a step, 4 a prefill, K2 4 a decode step), a decode step's host wall
    DTensor against plain, and deepseek-v3's gradient once more through
    ``shard_model`` (``run_sharded``), bit for bit against the unmeshed one;
+   the recurrent families' sharded step (``dist_tp_recurrent``): zamba2-7b
+   at published width and depth (a 2 x 1024 prefill and 8 decode steps,
+   one AdamW step of 2 x 2048 at depth 12) and rwkv6-1.6b at published
+   width and depth (an 8 x 256 prefill, 8 decode steps, one step of
+   64 x 64), each through ``shard_model`` and unmeshed, bit for bit, the
+   SSD and WKV scans on each rank's heads, K1 / K2 launches equal and as
+   designed (zamba2 13 a prefill, 13 K2 a decode step, 4 K1 a train step;
+   rwkv none), the host walls of a decode step and of the train step both
+   ways;
    and the host cost of the ``hint`` and
    ``tp_divides`` sites in one granite-3-2b decode step (``hint_sites``);
    (before it, 11a and 11b:)
@@ -1421,16 +1430,16 @@ def train_profile(torch, prof, wall: float) -> dict:
     from torch.autograd import DeviceType
 
     from repro_torch.launch.profile_cell import (RANGES, busy_ms,
-                                                 device_intervals)
+                                                 device_intervals,
+                                                 range_busy_ms, range_events)
     avg = prof.key_averages()
     dev = [(e.key, e.self_device_time_total / 1e3, e.count) for e in avg
            if getattr(e, "device_type", DeviceType.CPU) != DeviceType.CPU
            and e.self_device_time_total > 0 and e.key not in RANGES]
     dev.sort(key=lambda r: -r[1])
     busy = busy_ms(device_intervals(prof))
-    ranges = {r: sum(e.device_time_total / 1e3 for e in avg if e.key == r
-                     and getattr(e, "device_type", DeviceType.CPU)
-                     == DeviceType.CPU) for r in RANGES}
+    events = range_events(prof)
+    ranges = {r: range_busy_ms(events, r) for r in RANGES}
     k1 = sum(t for k, t, _ in dev if "flash_tc_kernel" in k
              or "flash_kernel" in k)
     gemm = sum(t for k, t, _ in dev
@@ -1454,8 +1463,9 @@ def train_profile(torch, prof, wall: float) -> dict:
           f"ms) of {wall:.1f} ms wall (idle share {out['idle_share']:.3f}); "
           f"{launches} kernel launches; K1 forward {k1:.1f} ms, plain "
           f"attention backward {out['plain_attention_backward_ms']:.1f} ms "
-          f"(range), GEMM kernels {gemm:.1f} ms (all, the backward's f32 "
-          f"products included), AdamW {out['optimizer_ms']:.1f} ms (range)",
+          f"(its range's kernels), GEMM kernels {gemm:.1f} ms (all, the "
+          f"backward's f32 products included), AdamW "
+          f"{out['optimizer_ms']:.1f} ms (its range's kernels)",
           flush=True)
     for k, t, n in dev[:10]:
         print(f"    {t:9.2f} ms  x{n:5d}  {k[:90]}", flush=True)
@@ -2921,6 +2931,167 @@ def dist_tp(torch, kern, mesh) -> dict:
                          "decode_attention": b["launches"]["decode0"][1]}}
 
 
+# the recurrent families' sharded step on the 1x1 mesh: zamba2-7b at
+# published width and depth (a prefill and decode steps; a train step at
+# depth 12: two groups of 6 and the shared block applied twice) and
+# rwkv6-1.6b at published width and depth (the train step at B64 S64, as
+# its train phase: its scan launches per token)
+DIST_TP_RECURRENT = (
+    dict(arch="zamba2-7b", prefill_B=2, prefill_S=1024, decode_steps=8,
+         train_layers=12, B=2, S=2048),
+    dict(arch="rwkv6-1.6b", prefill_B=8, prefill_S=256, decode_steps=8,
+         train_layers=None, B=64, S=64),
+)
+
+
+def dist_tp_recurrent(torch, kern, mesh) -> dict:
+    """The sharded step of the hybrid and rwkv families (the SSD and WKV
+    scans under ``local_map`` on each rank's heads; zamba2's shared block
+    through K1 / K2 on each rank's heads) on the 1x1 NCCL mesh against the
+    unmeshed run of the same seeds, bit for bit: a prefill's and every
+    decode step's logits, then one AdamW step's loss, params and moments
+    (compared on the card). K1 / K2 launches equal both ways and as
+    designed (zamba2: one K1 per shared-block application in a prefill and
+    two in a train step, one K2 per application in a decode step; rwkv:
+    none); the host walls of a decode step and of the train step, sharded
+    against unmeshed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.dist.sharding import shard_model
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import (make_prefill_step,
+                                              make_serve_step,
+                                              make_train_step)
+    flash, decode = kern["flash"], kern["decode"]
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        flash.launches = 0
+        decode.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (flash.launches, decode.launches), \
+            time.perf_counter() - t0
+
+    res = {}
+    for spec in DIST_TP_RECURRENT:
+        cfg = get_config(spec["arch"])
+        apps = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" \
+            else 0
+        Bp, Sp, n_dec = spec["prefill_B"], spec["prefill_S"], \
+            spec["decode_steps"]
+        tcfg = cfg if spec["train_layers"] is None else dataclasses.replace(
+            cfg, n_layers=spec["train_layers"])
+        t_apps = tcfg.n_layers // tcfg.attn_every if apps else 0
+        want = {"prefill": (apps, 0), "decode": (0, apps),
+                "train": (2 * t_apps, 0)}
+        print(f"[dist] tp {cfg.name}: published width and depth "
+              f"({cfg.n_layers} layers), a prefill of {Bp} x {Sp} and "
+              f"{n_dec} decode steps; one AdamW step of {spec['B']} x "
+              f"{spec['S']} at depth {tcfg.n_layers}; sharded by "
+              f"shard_model on the 1x1 mesh and unmeshed; launches designed "
+              f"{want}", flush=True)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        prompt = torch.randint(0, cfg.vocab, (Bp, Sp), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        toks = torch.randint(0, cfg.vocab, (n_dec, Bp, 1), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in next(
+            SyntheticCorpus(cfg.vocab, seed=SEED).batches(
+                spec["B"], spec["S"])).items()}
+        serve, train, launches, walls = {}, {}, {}, {}
+        for sharded in (False, True):
+            model = M.init_params(cfg, SEED, device="cuda")
+            if sharded:
+                shard_model(cfg, model, mesh)
+            (logits, state), n, w = counted(lambda: make_prefill_step(
+                cfg, Sp + n_dec)(model, {"tokens": prompt}))
+            runs = {"prefill": (n, w)}
+            out = [whole(logits).cpu()]
+            step = make_serve_step(cfg)
+            for i in range(n_dec):
+                (logits, state), n, w = counted(
+                    lambda: step(model, state, toks[i]))
+                out.append(whole(logits).cpu())
+                runs[f"decode{i}"] = (n, w)
+            serve[sharded] = out
+            del model, state, logits
+            free_cuda(torch)
+            model = M.make_trainable(tcfg, M.init_params(tcfg, SEED,
+                                                         device="cuda"))
+            if sharded:
+                shard_model(tcfg, model, mesh)
+            oc = OptConfig(warmup_steps=10, total_steps=10)
+            opt = init_opt_state(oc, dict(model.named_parameters()))
+            (_, opt, m), n, w = counted(lambda: make_train_step(tcfg, oc)(
+                model, opt, batch))
+            runs["train"] = (n, w)
+            train[sharded] = (m["loss"].item(), m["grad_norm"].item(), {
+                k: (whole(p.detach()), whole(opt["m"][k]), whole(opt["v"][k]))
+                for k, p in model.named_parameters()})
+            del model, opt
+            free_cuda(torch)
+            launches[sharded] = {k: n for k, (n, _) in runs.items()}
+            walls[sharded] = {k: w for k, (_, w) in runs.items()}
+        (la, ga, pa), (lb, gb, pb) = train[False], train[True]
+        bad = [k for k in pa if not all(torch.equal(x, y) for x, y in
+                                        zip(pa[k], pb[k]))]
+        bad_logits = [i for i, (x, y) in enumerate(zip(serve[False],
+                                                       serve[True]))
+                      if not torch.equal(x, y)]
+        finite = all(bool(torch.isfinite(x).all()) for x in serve[True])
+        n_leaves = len(pa)
+        del train, pa, pb
+        free_cuda(torch)
+        dec = {k: sum(walls[k][f"decode{i}"] for i in range(1, n_dec))
+               * 1e3 / (n_dec - 1) for k in walls}
+        host = {"decode_plain_ms": dec[False], "decode_dtensor_ms": dec[True],
+                "train_plain_s": walls[False]["train"],
+                "train_dtensor_s": walls[True]["train"]}
+        for label, k in (("unmeshed", False), ("sharded", True)):
+            print(f"  {cfg.name} {label}: launches {launches[k]}; walls (s) "
+                  f"{ {n: round(v, 4) for n, v in walls[k].items()} }",
+                  flush=True)
+        print(f"  {cfg.name} sharded vs unmeshed: prefill and decode logits "
+              f"bit-identical on {len(serve[False]) - len(bad_logits)}/"
+              f"{len(serve[False])}; train loss {la!r} vs {lb!r}, grad_norm "
+              f"{ga!r} vs {gb!r}; params and moments bit-identical on "
+              f"{n_leaves - len(bad)}/{n_leaves} leaves; K1 / K2 launches "
+              f"a prefill {launches[True]['prefill']}, a decode step "
+              f"{launches[True]['decode0']}, a train step "
+              f"{launches[True]['train']}; a decode step's host wall (steps "
+              f"2..{n_dec}, synchronised) {host['decode_plain_ms']:.3f} ms "
+              f"plain, {host['decode_dtensor_ms']:.3f} ms on DTensors; the "
+              f"train step {host['train_plain_s']:.3f} s plain, "
+              f"{host['train_dtensor_s']:.3f} s on DTensors on {card_line()}",
+              flush=True)
+        need(not bad_logits and finite and la == lb and ga == gb and not bad,
+             f"dist tp {cfg.name}: the sharded run differs from the unmeshed "
+             f"run (logits {bad_logits}, finite {finite}; loss {la} vs {lb}, "
+             f"grad_norm {ga} vs {gb}; leaves {bad[:5]})")
+        need(math.isfinite(lb), f"dist tp {cfg.name}: loss {lb}")
+        for k in (False, True):
+            for name, n in launches[k].items():
+                kind = "decode" if name.startswith("decode") else name
+                need(n == want[kind], f"dist tp {cfg.name}: launches at "
+                     f"{name} {n} != {want[kind]}")
+        res[cfg.name] = {"loss": lb, "grad_norm": gb, "host": host,
+                         "launches_per_phase": launches[True],
+                         "walls_s": walls[True],
+                         "unmeshed_walls_s": walls[False],
+                         "launches": {
+                             "flash_attention": launches[True]["prefill"][0],
+                             "decode_attention":
+                                 launches[True]["decode0"][1]}}
+    return res
+
+
 def dist_phase(torch, kern) -> dict:
     """The dist phase on a one-rank NCCL group and a ("data", "model") 1x1
     DeviceMesh on cuda:0; the group is destroyed when it ends."""
@@ -2956,12 +3127,17 @@ def dist_phase(torch, kern) -> dict:
         free_cuda(torch)
         print(f"[dist] tp done in {time.perf_counter() - t0:.1f}s",
               flush=True)
+        t0 = time.perf_counter()
+        recurrent = dist_tp_recurrent(torch, kern, mesh)
+        free_cuda(torch)
+        print(f"[dist] tp of the recurrent families done in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
     finally:
         dist.destroy_process_group()
     sites = hint_sites(torch)
     free_cuda(torch)
     res = {"deepseek": deepseek, "granite": granite, "tp": tp,
-           "hint_sites": sites}
+           "tp_recurrent": recurrent, "hint_sites": sites}
     print("  " + json.dumps(res), flush=True)
     return res
 
@@ -3055,8 +3231,15 @@ def launch_phase(torch, kern) -> dict:
               f"dry run {r['dot_flops_per_data_rank']:.9e} (rel {rel:.2e}); "
               f"the cell's peak memory {p['peak_memory_bytes'] / 2**30:.2f} "
               f"GiB (above {p['held_before_bytes'] / 2**30:.2f} GiB held "
-              f"before) vs the dry run's one-card estimate "
-              f"{r['one_card_estimate_bytes'] / 2**30:.2f} GiB; wall "
+              f"before; {p['peak_reserved_bytes'] / 2**30:.2f} GiB more "
+              f"reserved) vs the dry run's one-card estimates: storages "
+              f"{r['one_card_estimate_bytes'] / 2**30:.2f} GiB, the "
+              f"allocator model's blocks "
+              f"{r['one_card_allocator_estimate_bytes'] / 2**30:.2f} GiB "
+              f"(segments "
+              f"{r['one_card_reserved_estimate_bytes'] / 2**30:.2f} GiB); "
+              f"the allocator model over this run's own counted call "
+              f"{p['allocator_model_peak_bytes'] / 2**30:.2f} GiB; wall "
               f"{p['wall_ms']:.3f} ms, busy {p['device_busy_ms']:.3f} ms, "
               f"idle share {p['idle_share']:.4f}, MFU {p['mfu']:.4f}; reduced "
               f"{p['reduced'] or 'nothing'}; {p['seconds']:.1f}s on {card}",
@@ -3072,6 +3255,8 @@ def launch_phase(torch, kern) -> dict:
             "result_bytes_per_device", "activation_peak_bytes",
             "data_rank_activation_peak_bytes", "collective_total",
             "fits_h100_80gb", "one_card_estimate_bytes",
+            "one_card_allocator_estimate_bytes",
+            "one_card_reserved_estimate_bytes",
             "data_rank_argument_bytes", "seconds")}
         res[shape] = p
         free_cuda(torch)
@@ -3334,6 +3519,8 @@ def main(argv: list[str]) -> int:
     by_path["dist granite-3-2b"] = dist_res["granite"]["launches"]
     by_path["dist tp granite-3-2b"] = dist_res["tp"]["launches"]
     by_path["dist tp deepseek-v3-671b"] = dist_res["deepseek"]["tp_launches"]
+    for name, r in dist_res["tp_recurrent"].items():
+        by_path[f"dist tp {name}"] = r["launches"]
     free_cuda(torch)
     print(f"[dist] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
 

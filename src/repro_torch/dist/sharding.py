@@ -377,9 +377,11 @@ def distribute(tree: Pytree, mesh, specs: Pytree) -> Pytree:
 
 
 # ------------------------------------------------------------ sharded step
-# families whose step runs on DTensors; zamba2's and rwkv's scans have no
-# hint sites and stay on each rank's plain tensors
-SHARDED_FAMILIES = ("dense", "localglobal", "encdec", "vlm", "moe")
+# families whose step runs on DTensors: every family. The recurrent scans
+# (zamba2's chunked SSD, rwkv's WKV) run under ``local_map`` on each rank's
+# plain tensors, its batch rows and heads
+SHARDED_FAMILIES = ("dense", "localglobal", "encdec", "vlm", "moe", "hybrid",
+                    "rwkv")
 
 
 def mesh_of(t) -> Any:
@@ -398,6 +400,7 @@ def shard_model(cfg: ModelConfig, model: torch.nn.Module, mesh
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family has "
                                   "no sharded step")
     specs = named_param_specs(cfg, mesh)
+    flatten(mesh)
     for name, p in list(model.named_parameters()):
         *path, leaf = name.split(".")
         owner = model.get_submodule(".".join(path))
@@ -405,6 +408,19 @@ def shard_model(cfg: ModelConfig, model: torch.nn.Module, mesh
             distribute(p.detach(), mesh, specs[name]),
             requires_grad=p.requires_grad)
     return model
+
+
+def flatten(mesh) -> None:
+    """Register on ``mesh`` the 1-D mesh of every run of two or more of its
+    dims in order (("data", "model"); on a 3-D mesh also ("pod", "data")
+    and all three): DTensor then reduces a partial sum over such dims (a
+    replicated parameter's gradient, the global norm) in one collective
+    over their ranks, not one a dim in sequence, which may round
+    differently on different ranks."""
+    names = tuple(mesh.mesh_dim_names)
+    for i in range(len(names)):
+        for j in range(i + 2, len(names) + 1):
+            mesh[names[i:j]]._flatten()
 
 
 def shard_batch(cfg: ModelConfig, batch: Pytree, mesh) -> Pytree:

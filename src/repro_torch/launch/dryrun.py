@@ -21,31 +21,36 @@ compiler to ask, so for each cell this module
      matmul FLOPs, collectives, result bytes) and the peak of the bytes its
      own tensors held at once.
 
-For the families with a sharded step (``dist.sharding.SHARDED_FAMILIES``:
-dense, localglobal, encdec, vlm, moe) the cell's step runs a second time
-as the reference compiles it: at the global batch, its params sharded by
-``shard_model``, the batch and decode state placed by their spec trees, the
-activations DTensors redistributed at every hint site
-(``tp_on_activations: true``). The counter sees one device's work there
-(rank 0 of the fake group): ``dot_flops_per_device``,
-``result_bytes_per_device``, the collectives DTensor issues at their
-per-device bytes, and ``activation_peak_bytes``, the most bytes one
-device's own tensors held at once. ``device_argument_bytes`` (what rank 0's
-inputs hold) equals ``argument_size_in_bytes``. ``fits_h100_80gb`` compares
-the argument bytes per device plus that peak with 80 GiB; the peak counts
-storages, not the blocks a card's caching allocator keeps (``fits_note``).
-With causal attention sharded on query rows, rank 0 holds the first rows,
-the fewest visible pairs.
+Every family has a sharded step (``dist.sharding.SHARDED_FAMILIES``), so
+the cell's step runs a second time as the reference compiles it: at the
+global batch, its params sharded by ``shard_model``, the batch and decode
+state placed by their spec trees, the activations DTensors redistributed
+at every hint site (``tp_on_activations: true``); zamba2's chunked SSD and
+rwkv's WKV scan run on each rank's local (meta) tensors, its batch rows and
+heads. The counter sees one device's work there (rank 0 of the fake
+group): ``dot_flops_per_device``, ``result_bytes_per_device``, the
+collectives DTensor issues at their per-device bytes, and
+``activation_peak_bytes``, the most bytes one device's own tensors held at
+once. ``device_argument_bytes`` (what rank 0's inputs hold) equals
+``argument_size_in_bytes``. ``fits_h100_80gb`` compares the argument bytes
+per device plus that peak with 80 GiB; the peak counts storages, not the
+blocks a card's caching allocator keeps (``fits_note``). With causal
+attention sharded on query rows, rank 0 holds the first rows, the fewest
+visible pairs.
 
 Every cell also runs one data rank's whole step, unsharded: the model axis
 splits nothing of its activations (the sharded MoE's experts are the
 exception), and ``dot_flops_per_data_rank`` and
 ``result_bytes_per_data_rank`` count it (``profile_cell`` holds the card's
-count to it). zamba2's and rwkv's scans have no hint sites and no sharded
-step: their records keep ``tp_on_activations: false``, and their
-collectives and ``activation_peak_bytes`` are the data rank's, an upper
-bound on a device's. ``one_card_estimate_bytes`` is the data rank's whole
-step on one card (its arguments and ``data_rank_activation_peak_bytes``).
+count to it). ``one_card_estimate_bytes`` is the data rank's whole step on
+one card: its arguments and ``data_rank_activation_peak_bytes``, the
+storages alive at once. The same step's allocations and frees, in order,
+after its arguments, replayed through a model of the CUDA caching allocator
+(:mod:`launch.allocator`: rounding, the small and large pools, block
+splitting, freed blocks kept cached) give
+``one_card_allocator_estimate_bytes`` (its blocks: what
+``torch.cuda.max_memory_allocated`` reads) and
+``one_card_reserved_estimate_bytes`` (its segments).
 
 A decode step reads lengths from its state, which meta tensors do not hold:
 a decode cell's sequences are taken as full (``live_rows`` = the cell's
@@ -80,12 +85,8 @@ from repro_torch.launch import specs as S
 from repro_torch.train.optimizer import OptConfig
 
 H100_BYTES = 80 * 2**30
-FITS_NOTE = {True: ("one device's activation peak (the sharded step); a "
-                    "card's caching allocator is not counted (PERF.md, "
-                    "section 6)"),
-             False: ("upper bound on the activations (a data rank's whole: "
-                     "no TP on activations); a card's caching allocator is "
-                     "not counted (PERF.md, section 6)")}
+FITS_NOTE = ("one device's activation peak (the sharded step); a card's "
+             "caching allocator is not counted (PERF.md, section 6)")
 MESHES = {"pod1": ((16, 16), ("data", "model")),
           "pod2": ((2, 16, 16), ("pod", "data", "model"))}
 FAKE_WORLD = 512
@@ -222,14 +223,16 @@ def cell_bytes(cfg: ModelConfig, shape: InputShape, mesh) -> dict[str, Any]:
 class CellStep:
     """One cell's step, ready to call: ``run()`` makes one call; ``model``
     holds the weights; ``argument_bytes`` is what the step's inputs hold on
-    this device (weights, optimizer state, batch or decode state);
-    ``live_rows`` is the decode lengths' stand-in for the op counter (None
-    unless a decode)."""
+    this device (weights, optimizer state, batch or decode state), and
+    ``argument_sizes`` each input tensor's bytes in the order they were
+    made; ``live_rows`` is the decode lengths' stand-in for the op counter
+    (None unless a decode)."""
 
     run: Callable[[], Any]
     model: torch.nn.Module
     argument_bytes: int
     live_rows: int | None = None
+    argument_sizes: tuple[int, ...] = ()
 
 
 def cell_step(cfg: ModelConfig, shape: InputShape, B: int, *, mesh=None,
@@ -294,11 +297,14 @@ def cell_step(cfg: ModelConfig, shape: InputShape, B: int, *, mesh=None,
         def run():
             _, opt["state"], metrics = step(model, opt["state"], data)
             return metrics
-        return CellStep(run, model, _held(model, opt["state"], data))
+        held, sizes = _held(model, opt["state"], data)
+        return CellStep(run, model, held, argument_sizes=sizes)
     if shape.kind == "prefill":
         step = make_prefill_step(cfg, Sq)
         data = place(batch())
-        return CellStep(lambda: step(model, data), model, _held(model, data))
+        held, sizes = _held(model, data)
+        return CellStep(lambda: step(model, data), model, held,
+                        argument_sizes=sizes)
     step = make_serve_step(cfg)
     state = M.init_decode_state(cfg, B, Sq, device=dev)
     state["pos"].fill_(Sq - 1)
@@ -310,31 +316,32 @@ def cell_step(cfg: ModelConfig, shape: InputShape, B: int, *, mesh=None,
     if sharded:
         state = shd.shard_state(cfg, state, mesh)
         tok = place({"tokens": tok})["tokens"]
-    return CellStep(lambda: step(model, state, tok), model,
-                    _held(model, state, tok), Sq)
+    held, sizes = _held(model, state, tok)
+    return CellStep(lambda: step(model, state, tok), model, held, Sq, sizes)
 
 
-def _held(model: torch.nn.Module, *trees) -> int:
+def _held(model: torch.nn.Module, *trees) -> tuple[int, tuple[int, ...]]:
     """Bytes of the model's weights and of the tensors in ``trees`` (a
-    DTensor's: this rank's shard)."""
+    DTensor's: this rank's shard), and each tensor's, in the order they
+    were made (weights, then the trees)."""
     def nbytes(t):
         t = getattr(t, "_local_tensor", t)
         return t.numel() * t.element_size()
-    return sum(nbytes(p) for p in model.parameters()) \
-        + sum(nbytes(t) for t in _leaves(list(trees))
-              if isinstance(t, torch.Tensor))
+    sizes = tuple(nbytes(p) for p in model.parameters()) + tuple(
+        nbytes(t) for t in _leaves(list(trees)) if isinstance(t, torch.Tensor))
+    return sum(sizes), sizes
 
 
 def _record(rec: dict, a: dict) -> None:
-    """The collectives, the activation peak and the fit of the step whose
-    count is ``a``: one device's (the sharded step) or the data rank's."""
+    """The collectives, the activation peak and the fit of the sharded step
+    whose count (one device's) is ``a``."""
     rec["collectives"] = a["collective_bytes"]
     rec["collective_total"] = a["collective_total"]
     rec["collective_count"] = a["collective_count"]
     rec["activation_peak_bytes"] = a["peak_live_bytes"]
     rec["fits_h100_80gb"] = rec["argument_size_in_bytes"] \
         + a["peak_live_bytes"] <= H100_BYTES
-    rec["fits_note"] = FITS_NOTE[rec["tp_on_activations"]]
+    rec["fits_note"] = FITS_NOTE
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
@@ -355,8 +362,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         cfg = get_config(arch)
         shape = SHAPES[shape_name]
         rec["kind"] = shape.kind
-        tp = cfg.family in shd.SHARDED_FAMILIES
-        rec["tp_on_activations"] = tp
+        rec["tp_on_activations"] = True          # every family shards
         if started:
             init_fake_group(FAKE_WORLD)
         mesh = make_production_mesh(multi_pod=(mesh_kind == "pod2"))
@@ -372,31 +378,35 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                 rec["live_rows"] = cell.live_rows
             if collect_ops:
                 a = op_analysis.analyze(cell.run, params=cell.model,
-                                        live_rows=cell.live_rows)
+                                        live_rows=cell.live_rows,
+                                        held=cell.argument_sizes)
                 rec["dot_flops_per_data_rank"] = a["dot_flops"]
                 rec["result_bytes_per_data_rank"] = a["result_bytes"]
                 rec["n_ops"] = a["n_ops"]
                 rec["data_rank_activation_peak_bytes"] = a["peak_live_bytes"]
-                # one card running the data rank's whole step (profile_cell)
+                # one card running the data rank's whole step (profile_cell):
+                # its storages, and the caching allocator's blocks and
+                # segments replaying the same allocations
                 rec["one_card_estimate_bytes"] = cell.argument_bytes \
                     + a["peak_live_bytes"]
-                if not tp:
-                    _record(rec, a)
+                rec["one_card_allocator_estimate_bytes"] = \
+                    a["allocator_peak_bytes"]
+                rec["one_card_reserved_estimate_bytes"] = \
+                    a["allocator_reserved_peak_bytes"]
             else:
                 cell.run()
             del cell
-            if tp:
-                cell = cell_step(cfg, shape, shape.global_batch, mesh=mesh,
-                                 sharded=True)
-                rec["device_argument_bytes"] = cell.argument_bytes
-                if collect_ops:
-                    a = op_analysis.analyze(cell.run, params=cell.model,
-                                            live_rows=cell.live_rows)
-                    rec["dot_flops_per_device"] = a["dot_flops"]
-                    rec["result_bytes_per_device"] = a["result_bytes"]
-                    _record(rec, a)
-                else:
-                    cell.run()
+            cell = cell_step(cfg, shape, shape.global_batch, mesh=mesh,
+                             sharded=True)
+            rec["device_argument_bytes"] = cell.argument_bytes
+            if collect_ops:
+                a = op_analysis.analyze(cell.run, params=cell.model,
+                                        live_rows=cell.live_rows)
+                rec["dot_flops_per_device"] = a["dot_flops"]
+                rec["result_bytes_per_device"] = a["result_bytes"]
+                _record(rec, a)
+            else:
+                cell.run()
         rec["ok"] = True
     except Exception as e:  # noqa: BLE001 — recorded, cell marked failed
         rec["error"] = f"{type(e).__name__}: {e}"

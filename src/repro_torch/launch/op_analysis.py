@@ -19,7 +19,8 @@ where their meaning carries over:
   * ``result_bytes``     the bytes of every op's outputs: in eager mode each
                          is written to memory. Views and uninitialised
                          allocations (``empty``) write nothing and are left
-                         out; an in-place op counts the whole tensor it
+                         out (an ``empty`` storage still counts as held
+                         memory); an in-place op counts the whole tensor it
                          updates, as the reference counts a
                          dynamic-update-slice's whole result.
 
@@ -167,9 +168,16 @@ class OpCounter(TorchDispatchMode):
     lengths of ``meta`` tensors. After the ``with`` block, :meth:`summary`
     gives the totals and the grouped rows; ``peak_live_bytes`` is the most
     bytes the ops' own outputs held at once (storages made inside the block,
-    freed when the last tensor on them goes)."""
+    freed when the last tensor on them goes). The same allocations and
+    frees, in their order, go through a model of the CUDA caching allocator
+    (:mod:`launch.allocator`) that first holds ``held`` (the sizes of the
+    step's arguments): its peaks are ``allocator_peak_bytes`` (the blocks,
+    what ``torch.cuda.max_memory_allocated`` reads) and
+    ``allocator_reserved_peak_bytes`` (the segments)."""
 
-    def __init__(self, params=None, live_rows: int | None = None) -> None:
+    def __init__(self, params=None, live_rows: int | None = None,
+                 held=()) -> None:
+        from repro_torch.launch.allocator import CachingAllocator
         super().__init__()
         if isinstance(params, torch.nn.Module):
             params = dict(params.named_parameters())
@@ -188,6 +196,9 @@ class OpCounter(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_live_bytes = 0
         self._live: dict[int, int] = {}
+        self.allocator = CachingAllocator()
+        for i, n in enumerate(held):
+            self.allocator.malloc(("held", i), n)
         self._quiet = 0
         self._sharded = False
 
@@ -262,10 +273,12 @@ class OpCounter(TorchDispatchMode):
             self._live[key] = n
             self.live_bytes += n
             self.peak_live_bytes = max(self.peak_live_bytes, self.live_bytes)
+            self.allocator.malloc(key, n)
             weakref.finalize(st, self._free, key)
 
     def _free(self, key: int) -> None:
         self.live_bytes -= self._live.pop(key, 0)
+        self.allocator.free(key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if _DTensor in types:
@@ -297,6 +310,7 @@ class OpCounter(TorchDispatchMode):
             row[0] += 1
             row[1] += b
         if name in _NO_WRITE:
+            self._track(out)             # allocated, nothing written yet
             return out
         rets = func._schema.returns
         written = []
@@ -318,6 +332,9 @@ class OpCounter(TorchDispatchMode):
                 "result_bytes": self.result_bytes,
                 "n_ops": self.n_ops,
                 "peak_live_bytes": self.peak_live_bytes,
+                "allocator_peak_bytes": self.allocator.peak_allocated,
+                "allocator_reserved_peak_bytes":
+                    self.allocator.peak_reserved,
                 "dots": sorted(((fl, n, op, where, shapes) for
                                 (where, op, shapes), (n, fl)
                                 in self.dots.items()), reverse=True),
@@ -328,10 +345,10 @@ class OpCounter(TorchDispatchMode):
 
 
 def analyze(fn, *args, params=None, live_rows: int | None = None,
-            **kwargs) -> dict:
+            held=(), **kwargs) -> dict:
     """``fn(*args, **kwargs)`` under an :class:`OpCounter`; its summary,
     with ``fn``'s result under ``"out"``."""
-    counter = OpCounter(params=params, live_rows=live_rows)
+    counter = OpCounter(params=params, live_rows=live_rows, held=held)
     with counter:
         out = fn(*args, **kwargs)
     return dict(counter.summary(), out=out)

@@ -44,7 +44,9 @@ from repro_torch.launch import op_analysis as OA
 
 PEAK_BF16_FLOPS = 989e12          # H100 SXM dense bf16 (NVIDIA data sheet)
 # record_function ranges of the port's steps (the plain attention backward,
-# AdamW): their device spans cover other events and the gaps between them
+# AdamW): their own device spans cover other events and the gaps between
+# them, so a range's device time is read from the events it launched
+# (:func:`range_busy_ms`)
 RANGES = ("flash_attention_bwd_plain", "adamw_update")
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                  "cuLaunchKernelEx")
@@ -74,6 +76,52 @@ def device_intervals(prof) -> list[tuple[float, float]]:
             if getattr(e, "device_type", DeviceType.CPU) != DeviceType.CPU
             and not getattr(e, "is_user_annotation", False)
             and e.key not in RANGES]
+
+
+def range_events(prof) -> list:
+    """A finished ``torch.profiler.profile``'s raw (Kineto) events, the
+    input of :func:`range_busy_ms`: they carry the correlation ids that
+    link a device event to the host op that launched it."""
+    return list(prof.profiler.kineto_results.events())
+
+
+def range_busy_ms(events, name: str) -> float:
+    """Device busy time of the record_function range ``name``: the union
+    (:func:`busy_ms`) of the spans of the device events that the host ops
+    inside the range launched, matched by correlation id (a device event's
+    ``linked_correlation_id()`` is the ``correlation_id()`` of the host op
+    that launched it), over every call of the range. Not the range's own
+    device span, which also covers other threads' and streams' kernels and
+    the gaps between the range's kernels. ``events``: Kineto events
+    (:func:`range_events`)."""
+    import bisect
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    by_thread: dict = defaultdict(list)       # (start, end, id) a thread
+    calls, device = [], []
+    for e in events:
+        span = (e.start_ns(), e.end_ns())
+        if e.device_type() != DeviceType.CPU:
+            if e.name() != name:              # not the range's own span
+                device.append((span, e.linked_correlation_id()))
+            continue
+        by_thread[e.start_thread_id()].append(span + (e.correlation_id(),))
+        if e.name() == name:
+            calls.append((span, e.start_thread_id()))
+    for ops in by_thread.values():
+        ops.sort()
+    launched: set = set()
+    for (a, b), thread in calls:
+        ops = by_thread[thread]
+        i = bisect.bisect_left(ops, (a,))
+        while i < len(ops) and ops[i][0] <= b:
+            if ops[i][1] <= b:
+                launched.add(ops[i][2])
+            i += 1
+    launched.discard(0)                   # device events linked to no op
+    return busy_ms([(a / 1e6, b / 1e6) for (a, b), link in device
+                    if link in launched])
 
 
 def profile(what: str, fn, reps: int, top: int = 8,
@@ -183,6 +231,7 @@ def profile_cell(arch: str, shape_name: str, mesh: str = "pod1", *,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
         held_before = torch.cuda.memory_allocated()
+        reserved_before = torch.cuda.memory_reserved()
     t0 = time.perf_counter()
     cell = dryrun.cell_step(cfg, shape, B, device=dev, seed=seed,
                             microbatches=mb)
@@ -196,13 +245,17 @@ def profile_cell(arch: str, shape_name: str, mesh: str = "pod1", *,
 
     flash_attention.launches = 0
     decode_attention.launches = 0
-    a = OA.analyze(cell.run, params=cell.model, live_rows=cell.live_rows)
+    a = OA.analyze(cell.run, params=cell.model, live_rows=cell.live_rows,
+                   held=cell.argument_sizes)
     out = a.pop("out")
     logits = out[0] if isinstance(out, tuple) else out["loss"]
     res["finite"] = bool(torch.isfinite(logits.float()).all())
     del out, logits
+    # this run's own allocations through the allocator model (on the card:
+    # the counted call's, as dispatched there)
     res.update(dot_flops=a["dot_flops"], result_bytes=a["result_bytes"],
                collective_total=a["collective_total"],
+               allocator_model_peak_bytes=a["allocator_peak_bytes"],
                top_dots=OA.top_dots(a, top),
                top_collectives=OA.top_collectives(a, top))
     if on_card:                         # the counted call was the warm-up
@@ -224,6 +277,8 @@ def profile_cell(arch: str, shape_name: str, mesh: str = "pod1", *,
         res["held_before_bytes"] = held_before
         res["peak_memory_bytes"] = torch.cuda.max_memory_allocated() \
             - held_before
+        res["peak_reserved_bytes"] = torch.cuda.max_memory_reserved() \
+            - reserved_before
         wall_s = res["wall_ms"] / 1e3
         res["dispatched_tflops"] = a["dot_flops"] / wall_s / 1e12
         res["mfu"] = a["dot_flops"] / (wall_s * PEAK_BF16_FLOPS)
@@ -241,7 +296,10 @@ def _print(res: dict) -> None:
               f"{res['device_busy_ms']:.3f} ms, idle share "
               f"{res['idle_share']:.4f}; the cell's peak memory "
               f"{res['peak_memory_bytes'] / 2**30:.2f} GiB (above "
-              f"{res['held_before_bytes'] / 2**30:.2f} GiB held before)",
+              f"{res['held_before_bytes'] / 2**30:.2f} GiB held before), "
+              f"reserved {res['peak_reserved_bytes'] / 2**30:.2f} GiB more; "
+              f"the allocator model replaying this run's counted call "
+              f"{res['allocator_model_peak_bytes'] / 2**30:.2f} GiB",
               flush=True)
         print(f"dot_flops {res['dot_flops']:.6e} ({res['dispatched_tflops']:.1f}"
               f" TFLOP/s dispatched; MFU {res['mfu']:.4f} against "

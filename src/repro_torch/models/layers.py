@@ -425,6 +425,16 @@ def write_rows(cache: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return cache
 
 
+def write_state(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst.copy_(src)``, IN PLACE (a recurrent state of the same shape):
+    on a DTensor ``dst`` each rank writes its block of ``src``, taken where
+    ``dst``'s block lies (no gather). Returns ``dst``."""
+    if not isinstance(dst, DTensor):
+        return dst.copy_(src)
+    dst.to_local().copy_(local_along(dst, src, set(range(src.ndim))))
+    return dst
+
+
 def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor,
                  pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -85,7 +85,7 @@ from repro_torch.models.layers import (AttnDims, apply_rope, cache_update,
                                        merge_heads, mlp_block, rms_norm,
                                        softmax_xent, split_heads,
                                        uniform_scale_init, unembed,
-                                       write_rows)
+                                       write_rows, write_state)
 
 DENSE_FAMILIES = ("dense", "localglobal")
 FAMILIES = DENSE_FAMILIES + ("encdec", "vlm", "moe", "hybrid", "rwkv")
@@ -761,16 +761,17 @@ class HybridLM(_LM):
 
     def _mlp(self, h: torch.Tensor) -> torch.Tensor:
         sa = self.shared_attn
-        return h + mlp_block(sa["mlp"], rms_norm(h, sa["ln2"], self.cfg.norm_eps))
+        return _res(h + mlp_block(sa["mlp"],
+                                  rms_norm(h, sa["ln2"], self.cfg.norm_eps)))
 
     def _shared_block(self, h: torch.Tensor, positions,
                       kv=None) -> torch.Tensor:
         """One application of the shared attention block (its K/V written
         into ``kv`` when given)."""
         sa = self.shared_attn
-        h = h + _attn_prefill(self.cfg, sa["attn"],
-                              rms_norm(h, sa["ln"], self.cfg.norm_eps),
-                              positions, 0, kv)
+        h = _res(h + _attn_prefill(self.cfg, sa["attn"],
+                                   rms_norm(h, sa["ln"], self.cfg.norm_eps),
+                                   positions, 0, kv))
         return self._mlp(h)
 
     def _mamba_layer(self, p, h: torch.Tensor,
@@ -779,12 +780,12 @@ class HybridLM(_LM):
         exact post-sequence state is written there."""
         x = rms_norm(h, p["norm"], self.cfg.norm_eps)
         if st is None:
-            return h + ssm_mod.mamba2_block(self.cfg, p["mamba"], x)
+            return _res(h + ssm_mod.mamba2_block(self.cfg, p["mamba"], x))
         y, new = ssm_mod.mamba2_block(self.cfg, p["mamba"], x,
                                       return_state=True)
-        st["conv"].copy_(new["conv"])
-        st["ssm"].copy_(new["ssm"])
-        return h + y
+        write_state(st["conv"], new["conv"])
+        write_state(st["ssm"], new["ssm"])
+        return _res(h + y)
 
     def hidden(self, tokens: torch.Tensor, *,
                state: dict | None = None) -> torch.Tensor:
@@ -825,18 +826,19 @@ class HybridLM(_LM):
         h = _embed(self.embed, tokens)
         for p, key, i in self._layers():
             if p is None:
-                h = h + _attn_decode(cfg, sa["attn"], rms_norm(h, sa["ln"], eps),
-                                     state["attn_k"][i], state["attn_v"][i],
-                                     pos, lengths)
+                h = _res(h + _attn_decode(cfg, sa["attn"],
+                                          rms_norm(h, sa["ln"], eps),
+                                          state["attn_k"][i],
+                                          state["attn_v"][i], pos, lengths))
                 h = self._mlp(h)
                 continue
             conv, ssm = state[key]["conv"][i], state[key]["ssm"][i]
             y, new = ssm_mod.mamba2_step(cfg, p["mamba"],
                                          {"conv": conv, "ssm": ssm},
                                          rms_norm(h, p["norm"], eps))
-            conv.copy_(new["conv"])
-            ssm.copy_(new["ssm"])
-            h = h + y
+            write_state(conv, new["conv"])
+            write_state(ssm, new["ssm"])
+            h = _res(h + y)
         return self._head(self._final(h)), dict(state, pos=pos + 1)
 
 
@@ -870,15 +872,15 @@ class RwkvLM(_LM):
                                            state=state["wkv"][li])
         out, tm_new, wkv = rwkv_mod.time_mix(
             cfg, p["tm"], rms_norm(h, p["ln1"], eps), **kw)
-        h = h + out
+        h = _res(h + out)
         out, cm_new = rwkv_mod.channel_mix(
             cfg, p["cm"], rms_norm(h, p["ln2"], eps),
             last_x=None if state is None else state["cm_x"][li])
-        h = h + out
+        h = _res(h + out)
         if state is not None:
-            state["tm_x"][li].copy_(tm_new)              # stored in f32
-            state["cm_x"][li].copy_(cm_new)
-            state["wkv"][li].copy_(wkv)
+            write_state(state["tm_x"][li], tm_new)       # stored in f32
+            write_state(state["cm_x"][li], cm_new)
+            write_state(state["wkv"][li], wkv)
         return h
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -26,8 +26,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding as shd
 from repro_torch.models.layers import (NEG_INF, init_linear, rms_norm,
                                        uniform_scale_init)
 
@@ -91,6 +93,137 @@ def _conv1d(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     return out, (xp[:, -(K - 1):] if K > 1 else pad)
 
 
+def _heads(cfg: ModelConfig, proj: torch.Tensor, h0: int, h: int):
+    """(z, x, B, C, dt) of the fused projection ``proj`` (its whole
+    columns): z, x and dt of heads [h0, h0 + h), B and C (shared by every
+    head) whole."""
+    d_in, H, P, N = ssm_dims(cfg)
+    z, xc, Bc, Cc, dt = _split_proj(cfg, proj)
+    if h == H:
+        return z, xc, Bc, Cc, dt
+    cols = slice(h0 * P, (h0 + h) * P)
+    return z[..., cols], xc[..., cols], Bc, Cc, dt[..., h0:h0 + h]
+
+
+def _channels(cfg: ModelConfig, t: torch.Tensor, h0: int, h: int):
+    """The conv channels (last dim) of heads [h0, h0 + h)'s x and of B, C."""
+    d_in, H, P, _ = ssm_dims(cfg)
+    if h == H:
+        return t
+    return torch.cat([t[..., h0 * P:(h0 + h) * P], t[..., d_in:]], dim=-1)
+
+
+def _ssd_scan(xs, Bg, Cg, dtg, lg):
+    """The chunked SSD of chunks (B, nc, Q, ...): x (h, P) in its dtype,
+    B / C (N) in f32, dt and the log-decay (h) in f32. Returns y (B, nc, h,
+    Q, P) and the state (B, h, P, N) after the last chunk, in f32. Plain
+    tensors only: on a sharded model it runs on each rank's heads."""
+    B, nc, Q, h, P = xs.shape
+    N = Bg.shape[-1]
+    f32 = torch.float32
+    xf = xs.to(f32)
+    l = torch.cumsum(lg, dim=2)                            # inclusive
+    # decay matrix exp(l_t - l_s), s <= t, as (B, nc, h, t, s); the mask
+    # comes BEFORE the exp (s > t differences are positive and overflow)
+    lh = l.transpose(2, 3)                                 # (B,nc,h,Q)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=xs.device).tril()
+    L = torch.exp(torch.where(causal, lh[..., :, None] - lh[..., None, :],
+                              NEG_INF))
+    cb = Cg @ Bg.transpose(-1, -2)                         # (B,nc,Q,Q) t,s
+    # intra-chunk: y[t] = sum_s cb[t,s] L[h,t,s] dt[s,h] x[s,h,:]
+    W = cb[:, :, None] * L * dtg.transpose(2, 3)[:, :, :, None, :]
+    y = W @ xf.permute(0, 1, 3, 2, 4)                      # (B,nc,h,Q,P)
+    # each chunk's own contribution to the state at its end
+    decay_to_end = torch.exp(l[:, :, -1:] - l)             # (B,nc,Q,h)
+    dx = xf * (dtg * decay_to_end)[..., None]              # (B,nc,Q,h,P)
+    inc = torch.einsum("bcshp,bcsn->bchpn", dx, Bg)        # (B,nc,h,P,N)
+    chunk_decay = torch.exp(l[:, :, -1])[..., None, None]  # (B,nc,h,1,1)
+    hs = torch.zeros((B, h, P, N), dtype=f32, device=xs.device)
+    starts = []
+    for c in range(nc):                  # the reference's scan carry
+        starts.append(hs)
+        hs = chunk_decay[:, c] * hs + inc[:, c]
+    h0 = torch.stack(starts, dim=1)                        # (B,nc,h,P,N)
+    # inter-chunk: the carried state seen from each position
+    y = y + torch.einsum("bctn,bchpn->bchtp", Cg, h0) \
+        * torch.exp(lh)[..., None]
+    return y, hs
+
+
+def _block_local(cfg: ModelConfig, proj, conv_w, conv_b, dt_bias, A_log, D,
+                 h0: int, h: int, return_state: bool):
+    """The prefill mixer of heads [h0, h0 + h) on plain tensors, from the
+    whole columns of the fused projection (B, S, 2 d_in + 2N + H): the
+    gated output ``y * silu(z)`` (B, S, h P) in proj's dtype, the SSD state
+    (B, h, P, N) and, with ``return_state``, the last K-1 conv inputs of
+    every channel (B, K-1, d_in + 2N) in f32."""
+    B, S, _ = proj.shape
+    d_in, _, P, N = ssm_dims(cfg)
+    f32 = torch.float32
+    z, xc, Bc, Cc, dt = _heads(cfg, proj, h0, h)
+    tail = None
+    if return_state:
+        conv_all = proj[..., d_in:2 * d_in + 2 * N]        # x | B | C
+        Kc = cfg.ssm_conv - 1
+        if S >= Kc:
+            tail = conv_all[:, S - Kc:].to(f32)
+        else:                                      # tiny test sequences
+            tail = F.pad(conv_all.to(f32), (0, 0, Kc - S, 0))
+    conv_in = torch.cat([xc, Bc, Cc], dim=-1)
+    conv_out, _ = _conv1d(_channels(cfg, conv_w, h0, h),
+                          _channels(cfg, conv_b, h0, h), conv_in)
+    xc, Bc, Cc = torch.split(F.silu(conv_out), [h * P, N, N], dim=-1)
+
+    dt = F.softplus(dt.to(f32) + dt_bias[h0:h0 + h])             # (B,S,h)
+    loga = -torch.exp(A_log[h0:h0 + h]) * dt                      # <= 0
+
+    # pad to a chunk multiple and cut into nc chunks of Q
+    Q = min(CHUNK, S)
+    pad = (-S) % Q
+    Sp = S + pad
+    nc = Sp // Q
+
+    def chunks(a: torch.Tensor, *rest: int) -> torch.Tensor:
+        if pad:
+            a = F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
+        return a.reshape(B, nc, Q, *rest)
+
+    xs = chunks(xc, h, P)                                  # x's dtype
+    y, hs = _ssd_scan(xs, chunks(Bc.to(f32), N), chunks(Cc.to(f32), N),
+                      chunks(dt, h), chunks(loga, h))
+    y = y.permute(0, 1, 3, 2, 4).reshape(B, Sp, h, P)[:, :S]
+    y = y + D[h0:h0 + h][:, None] * xs.reshape(B, Sp, h, P)[:, :S]
+    y = y.reshape(B, S, h * P).to(proj.dtype)
+    return y * F.silu(z), hs, tail
+
+
+def _step_local(cfg: ModelConfig, proj, conv, ssm, conv_w, conv_b, dt_bias,
+                A_log, D, h0: int, h: int):
+    """One decode token of heads [h0, h0 + h) on plain tensors: ``proj``
+    (B, 1, ...) whole columns, ``conv`` (B, K-1, d_in + 2N) every channel,
+    ``ssm`` (B, h, P, N) the heads' state. Returns the gated output (B, 1,
+    h P), the new conv window (every channel, f32) and the new state."""
+    B = proj.shape[0]
+    d_in, _, P, N = ssm_dims(cfg)
+    f32 = torch.float32
+    z, _, _, _, dt = _heads(cfg, proj, h0, h)
+    conv_out, conv_state = _conv1d(conv_w, conv_b,
+                                   proj[..., d_in:2 * d_in + 2 * N], conv)
+    xc, Bc, Cc = torch.split(F.silu(conv_out), [d_in, N, N], dim=-1)
+    xc = xc[..., h0 * P:(h0 + h) * P]
+
+    dt = F.softplus(dt[:, 0].to(f32) + dt_bias[h0:h0 + h])        # (B,h)
+    a = torch.exp(-torch.exp(A_log[h0:h0 + h]) * dt)              # (B,h)
+    xh = xc[:, 0].reshape(B, h, P).to(f32)
+    Bv, Cv = Bc[:, 0].to(f32), Cc[:, 0].to(f32)                   # (B,N)
+    hs = ssm * a[:, :, None, None] \
+        + (xh * dt[:, :, None])[..., None] * Bv[:, None, None, :]
+    y = (hs @ Cv[:, None, :, None])[..., 0]                       # (B,h,P)
+    y = y + D[h0:h0 + h][:, None] * xh
+    y = y.reshape(B, 1, h * P).to(proj.dtype)
+    return y * F.silu(z), conv_state.to(f32), hs
+
+
 def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor,
                  return_state: bool = False):
     """Full-sequence (prefill) Mamba2 mixer. x: (B, S, d) -> (B, S, d).
@@ -99,71 +232,23 @@ def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor,
     after the last token: ``conv`` holds the last K-1 conv INPUTS (before the
     conv and the silu) in f32, left-padded with zeros when S < K-1; padding
     the sequence to a chunk multiple is state-neutral (padded ``loga`` and
-    ``dt`` are zero: decay 1, no input)."""
-    B, S, _ = x.shape
-    d_in, H, P, N = ssm_dims(cfg)
-    f32 = torch.float32
-    z, xc, Bc, Cc, dt = _split_proj(cfg, x @ p["in_proj"])
-    conv_in = torch.cat([xc, Bc, Cc], dim=-1)
-    Kc = cfg.ssm_conv - 1
-    if S >= Kc:
-        conv_tail = conv_in[:, S - Kc:].to(f32)
-    else:                                          # tiny test sequences
-        conv_tail = F.pad(conv_in.to(f32), (0, 0, Kc - S, 0))
-    conv_out, _ = _conv1d(p["conv_w"], p["conv_b"], conv_in)
-    xc, Bc, Cc = torch.split(F.silu(conv_out), [d_in, N, N], dim=-1)
+    ``dt`` are zero: decay 1, no input).
 
-    dt = F.softplus(dt.to(f32) + p["dt_bias"])                   # (B,S,H)
-    loga = -torch.exp(p["A_log"]) * dt                            # <= 0
-
-    # pad to a chunk multiple and cut into nc chunks of Q
-    Q = min(CHUNK, S)
-    pad = (-S) % Q
-    Sp = S + pad
-    nc = Sp // Q
-
-    def chunks(a: torch.Tensor, *tail: int) -> torch.Tensor:
-        if pad:
-            a = F.pad(a, (0, 0) * (a.ndim - 2) + (0, pad))
-        return a.reshape(B, nc, Q, *tail)
-
-    xs = chunks(xc, H, P)                                  # x's dtype
-    xf = xs.to(f32)
-    Bg, Cg = chunks(Bc.to(f32), N), chunks(Cc.to(f32), N)  # (B,nc,Q,N)
-    dtg, lg = chunks(dt, H), chunks(loga, H)               # (B,nc,Q,H)
-
-    l = torch.cumsum(lg, dim=2)                            # inclusive
-    # decay matrix exp(l_t - l_s), s <= t, as (B, nc, H, t, s); the mask
-    # comes BEFORE the exp (s > t differences are positive and overflow)
-    lh = l.transpose(2, 3)                                 # (B,nc,H,Q)
-    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    L = torch.exp(torch.where(causal, lh[..., :, None] - lh[..., None, :],
-                              NEG_INF))
-    cb = Cg @ Bg.transpose(-1, -2)                         # (B,nc,Q,Q) t,s
-    # intra-chunk: y[t] = sum_s cb[t,s] L[h,t,s] dt[s,h] x[s,h,:]
-    W = cb[:, :, None] * L * dtg.transpose(2, 3)[:, :, :, None, :]
-    y = W @ xf.permute(0, 1, 3, 2, 4)                      # (B,nc,H,Q,P)
-    # each chunk's own contribution to the state at its end
-    decay_to_end = torch.exp(l[:, :, -1:] - l)             # (B,nc,Q,H)
-    dx = xf * (dtg * decay_to_end)[..., None]              # (B,nc,Q,H,P)
-    inc = torch.einsum("bcshp,bcsn->bchpn", dx, Bg)        # (B,nc,H,P,N)
-    chunk_decay = torch.exp(l[:, :, -1])[..., None, None]  # (B,nc,H,1,1)
-    h = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
-    starts = []
-    for c in range(nc):                  # the reference's scan carry
-        starts.append(h)
-        h = chunk_decay[:, c] * h + inc[:, c]
-    h0 = torch.stack(starts, dim=1)                        # (B,nc,H,P,N)
-    # inter-chunk: the carried state seen from each position
-    y = y + torch.einsum("bctn,bchpn->bchtp", Cg, h0) \
-        * torch.exp(lh)[..., None]
-    y = y.permute(0, 1, 3, 2, 4).reshape(B, Sp, H, P)[:, :S]
-    y = y + p["D"][:, None] * xs.reshape(B, Sp, H, P)[:, :S]
-    y = y.reshape(B, S, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    On DTensors (a sharded model) the mixer runs on each rank's batch rows
+    and SSM heads (:func:`_on_heads`); the gated norm's statistics reduce
+    over the heads' ranks, and ``out_proj``'s result is a partial sum over
+    them, as the dense family's ``wo``."""
+    proj = x @ p["in_proj"]
+    args = (proj, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], p["D"])
+    if isinstance(proj, DTensor):
+        y, hs, tail = _on_heads(cfg, _block_local, args, (return_state,),
+                                tail=return_state)
+    else:
+        y, hs, tail = _block_local(cfg, *args, 0, ssm_dims(cfg)[1],
+                                   return_state)
+    out = rms_norm(y, p["norm"], cfg.norm_eps) @ p["out_proj"]
     if return_state:
-        return out, {"conv": conv_tail, "ssm": h}
+        return out, {"conv": tail, "ssm": hs}
     return out
 
 
@@ -179,24 +264,65 @@ def mamba2_init_state(cfg: ModelConfig, batch: int, *,
 def mamba2_step(cfg: ModelConfig, p, state: dict,
                 x: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """One-token decode. x: (B, 1, d). Returns (out, new state); the new
-    state is fresh tensors (the model writes them into its cache)."""
-    B = x.shape[0]
-    d_in, H, P, N = ssm_dims(cfg)
-    f32 = torch.float32
-    z, xc, Bc, Cc, dt = _split_proj(cfg, x @ p["in_proj"])
-    conv_in = torch.cat([xc, Bc, Cc], dim=-1)                     # (B,1,C)
-    conv_out, conv_state = _conv1d(p["conv_w"], p["conv_b"], conv_in,
-                                   state["conv"])
-    xc, Bc, Cc = torch.split(F.silu(conv_out), [d_in, N, N], dim=-1)
+    state is fresh tensors (the model writes them into its cache). On
+    DTensors each rank steps its batch rows and SSM heads, from the conv
+    window of every channel."""
+    proj = x @ p["in_proj"]
+    args = (proj, state["conv"], state["ssm"], p["conv_w"], p["conv_b"],
+            p["dt_bias"], p["A_log"], p["D"])
+    if isinstance(proj, DTensor):
+        y, conv, hs = _on_heads(cfg, _step_local, args, (), step=True)
+    else:
+        y, conv, hs = _step_local(cfg, *args, 0, ssm_dims(cfg)[1])
+    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    return y @ p["out_proj"], {"conv": conv, "ssm": hs}
 
-    dt = F.softplus(dt[:, 0].to(f32) + p["dt_bias"])              # (B,H)
-    a = torch.exp(-torch.exp(p["A_log"]) * dt)                    # (B,H)
-    xh = xc[:, 0].reshape(B, H, P).to(f32)
-    Bv, Cv = Bc[:, 0].to(f32), Cc[:, 0].to(f32)                   # (B,N)
-    h = state["ssm"] * a[:, :, None, None] \
-        + (xh * dt[:, :, None])[..., None] * Bv[:, None, None, :]
-    y = (h @ Cv[:, None, :, None])[..., 0]                        # (B,H,P)
-    y = y + p["D"][:, None] * xh
-    y = y.reshape(B, 1, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], {"conv": conv_state.to(f32), "ssm": h}
+
+def _on_heads(cfg: ModelConfig, fn, args, extra, *, tail: bool = False,
+              step: bool = False):
+    """``fn`` (:func:`_block_local` or :func:`_step_local`) under
+    ``local_map`` on each rank's plain tensors: its batch rows on the DP
+    axes and, where they divide "model", its SSM heads. The fused
+    projection's columns, the conv window's and ``conv_w``'s channels are
+    gathered whole (their blocks cut z | x | B | C | dt across heads), so
+    each rank takes its heads' z, x and dt and the B and C that every head
+    reads; the SSD's loops see no DTensor. The gradient of a whole input is
+    a partial sum over "model" (each rank's heads) and over the DP axes
+    that split the rows (each rank's rows)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = args[0].device_mesh
+    names = mesh.mesh_dim_names
+    H = ssm_dims(cfg)[1]
+    b, _, hx, _ = shd.attention_layout(mesh, args[0].shape[0], H, H, None)
+    coord = dict(zip(names, mesh.get_coordinate()))
+    h = H // shd.axis_size(mesh, hx)
+    h0 = coord[hx] * h if hx is not None else 0
+
+    def pl(*spec):
+        return tuple(shd.placements(mesh, shd.P(*spec)))
+
+    def grad_of(placed, over):
+        return tuple(Partial() if a in over else p
+                     for a, p in zip(names, placed))
+
+    rows = pl(b, None, None)
+    ins = [args[0].redistribute(mesh, rows)]
+    in_pl, grad_pl = [rows], [grad_of(rows, shd._axes(hx))]
+    if step:                                  # the conv window, the state
+        in_pl += [rows, pl(b, hx, None, None)]
+        grad_pl += in_pl[1:]
+        ins += [t.redistribute(mesh, p) for t, p in zip(args[1:3],
+                                                       in_pl[1:])]
+    whole = tuple(Replicate() for _ in names)
+    for w in args[len(ins):]:
+        ins.append(w.redistribute(mesh, whole))
+        in_pl.append(whole)
+        grad_pl.append(grad_of(whole, shd._axes(b) + shd._axes(hx)))
+    heads = pl(b, hx, None, None)
+    out_pl = (pl(b, None, hx),) + ((rows, heads) if step else
+                                   (heads, rows if tail else None))
+    return local_map(lambda *t: fn(cfg, *t, h0, h, *extra),
+                     out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl),
+                     device_mesh=mesh)(*ins)

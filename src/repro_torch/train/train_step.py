@@ -17,8 +17,12 @@ batch of whole tensors is placed here), the decode state by
 params' placements (each microbatch's is redistributed onto them: a
 reduce-scatter of a partial sum), so do the accumulator and AdamW's
 moments, and no gradient is gathered whole; a microbatch moves only its
-own rows (:func:`_microbatches`). The loss and the metrics come back as
-plain 0-d tensors (replicated values).
+own rows (:func:`_microbatches`). A partial sum over several mesh dims (a
+replicated parameter's gradient, the global norm) is reduced in one
+collective over their ranks (``shard_model`` and ``grad_specs`` register
+the flattened mesh: ``dist.sharding.flatten``), so every rank reads the
+same bits. The loss and the metrics come back as plain 0-d tensors
+(replicated values).
 """
 
 from __future__ import annotations
@@ -58,13 +62,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *,
         from torch.distributed.tensor import DTensor, Partial, Replicate
 
         from repro_torch.dist.hints import get_rules
-        from repro_torch.dist.sharding import AbstractMesh, placements
+        from repro_torch.dist.sharding import (AbstractMesh, flatten,
+                                               placements)
         r = get_rules()
         if r is None or isinstance(r["mesh"], AbstractMesh):
             raise RuntimeError("train_step: grad_specs places gradients on a "
                                "mesh; call the step under "
                                "sharding_rules(DeviceMesh)")
         mesh, dp, n = r["mesh"], r["dp"], r["dp_size"]
+        flatten(mesh)
         partial = [Partial() if a in dp else Replicate()
                    for a in mesh.mesh_dim_names]
         out = {}

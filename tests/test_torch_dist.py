@@ -237,7 +237,7 @@ if __name__ != "__main__":
     MESHES = [((16, 16), ("data", "model")),
               ((2, 16, 16), ("pod", "data", "model")),
               ((1, 1), ("data", "model")), ((2, 2), ("data", "model")),
-              ((4, 1), ("data", "model"))]
+              ((4, 1), ("data", "model")), ((1, 4), ("data", "model"))]
 
 
 def _jflat(tree, leaf=None) -> dict:
@@ -290,16 +290,18 @@ def test_param_specs_equal_the_references(arch):
         got = _tspecs(shd.param_specs(cfg, t_shapes,
                                       shd.AbstractMesh(shape, names)))
         assert got == want, (arch, shape)
-    # by the port's parameter names: the stacked leaf's spec, stacked dims
-    # dropped
-    named = shd.named_param_specs(cfg, shd.AbstractMesh((16, 16),
-                                                        ("data", "model")))
-    flat = _tspecs(shd.param_specs(cfg, t_shapes, shd.AbstractMesh(
-        (16, 16), ("data", "model"))))
+    # by the port's parameter names (what shard_model places): the
+    # reference's stacked leaf's spec, stacked dims dropped, on every mesh
     from repro_torch._bridge import reference_key
-    for name, spec in named.items():
-        key, idx = reference_key(name)
-        assert flat[key] == (None,) * len(idx) + tuple(spec), name
+    for shape, names in MESHES:
+        want = _jspecs(jshd.param_specs(jcfg, j_shapes,
+                                        JaxAbstractMesh(shape, names)))
+        named = shd.named_param_specs(cfg, shd.AbstractMesh(shape, names))
+        assert {reference_key(n)[0] for n in named} == set(want), arch
+        for name, spec in named.items():
+            key, idx = reference_key(name)
+            assert want[key] == (None,) * len(idx) + tuple(spec), \
+                (name, shape)
 
 
 @pytest.mark.parametrize("arch", JAX_ARCHS if __name__ != "__main__" else [])

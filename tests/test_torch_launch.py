@@ -432,10 +432,8 @@ def test_dry_run_cell_is_ok_at_full_size(tmp_path, arch, shape, mesh, batch):
     assert (rec["arch"], rec["shape"], rec["mesh"], rec["kind"]) == \
         (arch, shape, mesh, "decode")
     assert rec["n_devices"] == (256 if mesh == "pod1" else 512)
-    tp = arch == "granite-3-2b"           # rwkv has no sharded step
-    assert rec["tp_on_activations"] is tp
-    assert rec["fits_note"].startswith("one device's" if tp
-                                       else "upper bound")
+    assert rec["tp_on_activations"] is True     # every family's step shards
+    assert rec["fits_note"].startswith("one device's")
     assert rec["batch_per_data_rank"] == batch
     assert rec["microbatches"] == 1 and rec["live_rows"] == \
         SHAPES[shape].seq_len
@@ -446,21 +444,69 @@ def test_dry_run_cell_is_ok_at_full_size(tmp_path, arch, shape, mesh, batch):
     assert rec["dot_flops_per_data_rank"] > 0
     assert rec["result_bytes_per_data_rank"] > 0
     assert rec["activation_peak_bytes"] > 0 and rec["fits_h100_80gb"]
-    if tp:
-        # one device of the sharded step: its shards of the arguments, a
-        # sixteenth of the model axis' work at most, the cache rows gathered
-        assert rec["device_argument_bytes"] == rec["argument_size_in_bytes"]
-        assert 0 < rec["dot_flops_per_device"] \
-            < rec["dot_flops_per_data_rank"] / 8
-        assert 0 < rec["result_bytes_per_device"]
-        assert rec["collectives"]["all-gather"] > 0
-    else:
-        assert "dot_flops_per_device" not in rec
-        assert rec["collective_count"] == 0    # one data rank, no grads
+    # the caching allocator's blocks hold at least the storages, its
+    # segments at least the blocks
+    assert rec["one_card_estimate_bytes"] \
+        <= rec["one_card_allocator_estimate_bytes"] \
+        <= rec["one_card_reserved_estimate_bytes"]
+    # one device of the sharded step: its shards of the arguments, a
+    # sixteenth of the model axis' work at most, the cache rows gathered
+    # (granite) or the replicated token-shift state placed (rwkv)
+    assert rec["device_argument_bytes"] == rec["argument_size_in_bytes"]
+    assert 0 < rec["dot_flops_per_device"] \
+        < rec["dot_flops_per_data_rank"] / 8
+    assert 0 < rec["result_bytes_per_device"]
+    assert rec["collectives"]["all-gather"] > 0
     p = subprocess.run(cmd + ["--skip-done"], capture_output=True, text=True,
                        timeout=CELL_TIMEOUT, env=_env(), cwd=ROOT)
     assert p.returncode == 0 and "done: 0 ok, 0 failed" in p.stdout
     assert len(out.read_text().splitlines()) == 1
+
+
+@pytest.mark.parametrize("steps, allocated, reserved", [
+    # under 512 bytes: one 512-byte block of a 2 MiB small segment
+    ([("a", 1, 100)], 512, 2 << 20),
+    # two small requests share a segment (each block split off its rest)
+    ([("a", 1, 600 << 10), ("a", 2, 600 << 10)], 1200 << 10, 2 << 20),
+    # 5 MiB takes a 20 MiB segment, split; freed and merged, the whole
+    # block serves 19.5 MiB (the 0.5 MiB rest is not split off)
+    ([("a", 1, 5 << 20), ("f", 1), ("a", 2, 39 << 19)], 20 << 20, 20 << 20),
+    # freed segments stay cached: 30 MiB then 40 MiB reserve 70 MiB
+    ([("a", 1, 30 << 20), ("f", 1), ("a", 2, 40 << 20)], 40 << 20,
+     70 << 20),
+    # the smallest cached block that fits (the 12 MiB one, not the 40 MiB)
+    ([("a", 1, 40 << 20), ("a", 2, 12 << 20), ("f", 1), ("f", 2),
+      ("a", 3, 12 << 20), ("a", 4, 40 << 20)], 52 << 20, 52 << 20),
+    # a large request's segment rounds up to 2 MiB, its block to 512 bytes
+    # (split: nearly 2 MiB are left); 1 byte less than a MiB left is not
+    ([("a", 1, (12 << 20) + 1)], (12 << 20) + 512, 14 << 20),
+    ([("a", 1, (13 << 20) + 1)], 14 << 20, 14 << 20),
+], ids=["tiny", "small-pool", "no-split", "cached", "best-fit", "round",
+        "round-whole"])
+def test_caching_allocator_model(steps, allocated, reserved):
+    """``launch.allocator``: the CUDA caching allocator's rounding, pools,
+    segment sizes, splitting, best fit and caching, on known sequences."""
+    from repro_torch.launch.allocator import replay
+    got = replay(steps)
+    assert (got["peak_allocated"], got["peak_reserved"]) == (allocated,
+                                                             reserved)
+
+
+def test_op_counter_replays_its_allocations_through_the_allocator_model():
+    """The counter feeds every storage it tracks, and the held arguments,
+    to the allocator model: a 3 KiB argument and two 1 KiB-and-a-byte
+    intermediates, one freed before the other is made, peak at 3 KiB + 1.5
+    KiB of blocks (each rounded to 512 bytes) in one 2 MiB segment."""
+    x = torch.ones(257, dtype=torch.float32)
+
+    def step():
+        y = x * 2                  # 1028 bytes -> a 1536-byte block
+        del y
+        return x + 1
+    a = op_analysis.analyze(step, held=(3 << 10,))
+    assert a["peak_live_bytes"] == 1028
+    assert a["allocator_peak_bytes"] == (3 << 10) + 1536
+    assert a["allocator_reserved_peak_bytes"] == 2 << 20
 
 
 def test_run_cell_records_a_failure():

@@ -736,6 +736,63 @@ def test_busy_time_is_the_union_of_device_intervals(intervals, want):
     assert busy_ms(intervals) == pytest.approx(want)
 
 
+def test_a_ranges_device_time_is_the_union_of_its_own_kernels():
+    """``launch.profile_cell.range_busy_ms`` on a synthetic trace of Kineto
+    events (times in ns): the range ``adamw_update`` runs twice on host
+    thread 1; its ops launch kernels on [100, 130] and [200, 220] us (a 70
+    us gap between them inside its device span) and on [500, 510] us.
+    Another thread's op launches a kernel in that gap, and an op of thread
+    1 after the range one that overlaps the range's last kernel: neither
+    counts, nor does the range's own device span. 60 us, not the 120 us of
+    the range's first device span or the 170 us of every kernel under
+    it."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.launch.profile_cell import range_busy_ms
+
+    class Event:
+        def __init__(self, name, corr, thread, a, b, dev=DeviceType.CPU,
+                     link=0):
+            self._v = (name, corr, thread, a * 1000, b * 1000, dev, link)
+
+        def name(self):
+            return self._v[0]
+
+        def correlation_id(self):
+            return self._v[1]
+
+        def start_thread_id(self):
+            return self._v[2]
+
+        def start_ns(self):
+            return self._v[3]
+
+        def end_ns(self):
+            return self._v[4]
+
+        def device_type(self):
+            return self._v[5]
+
+        def linked_correlation_id(self):
+            return self._v[6]
+
+    def kernel(link, a, b, name="k"):
+        return Event(name, 900 + link, 7, a, b, DeviceType.CUDA, link)
+
+    events = [
+        Event("adamw_update", 10, 1, 0, 100), Event("aten::mul", 11, 1, 10, 20),
+        Event("aten::add", 12, 1, 60, 70), Event("aten::mm", 21, 2, 30, 40),
+        Event("aten::sub", 14, 1, 150, 160),
+        Event("adamw_update", 30, 1, 300, 400),
+        Event("aten::mul", 13, 1, 310, 320),
+        kernel(11, 100, 130), kernel(12, 200, 220), kernel(21, 140, 190),
+        kernel(14, 210, 260), kernel(13, 500, 510),
+        kernel(10, 100, 220, name="adamw_update"),  # the range's own span
+    ]
+    assert range_busy_ms(events, "adamw_update") == pytest.approx(0.060)
+    assert range_busy_ms(events, "flash_attention_bwd_plain") == 0.0
+
+
 # --------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda():
