@@ -55,7 +55,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.config import ServingConfig
 from repro_torch.core.locstore import DropReport, JoinReport, LocStore, Placement
@@ -195,11 +195,18 @@ class TorchComputeBackend:
         if key is not None:
             batch[key] = self._extra(key, extras)
         self._sync()
-        t0 = time.perf_counter()
-        logits, fresh = M.prefill(self.cfg, params, batch, self.max_seq)
-        self._sync()
-        dt = time.perf_counter() - t0
-        return int(torch.argmax(logits[0, -1])), fresh, dt
+        with obs.span("prefill") as sp:
+            t0 = time.perf_counter_ns()
+            with obs.span("prefill.launch"):
+                logits, fresh = M.prefill(self.cfg, params, batch,
+                                          self.max_seq)
+                first = torch.argmax(logits[0, -1])
+            self._sync()
+            t1 = time.perf_counter_ns()
+            if sp.on:
+                sp.at(t0, t1)
+                sp.set(tokens=len(prompt))
+        return int(first), fresh, (t1 - t0) / 1e9
 
     def _extra(self, key: str, extras: dict | None) -> torch.Tensor:
         """The stubbed frontend's input for one prompt, as the reference
@@ -220,9 +227,14 @@ class TorchComputeBackend:
                tokens: np.ndarray) -> tuple[np.ndarray, Pytree]:
         """One pooled decode step; returns (argmax token per slot, state).
         The pooled cache is updated in place."""
-        tok = torch.as_tensor(tokens, dtype=torch.int64).to(self.device)
-        logits, state = M.decode_step(self.cfg, params, state, tok)
-        return torch.argmax(logits[:, -1], dim=-1).cpu().numpy(), state
+        with obs.span("decode.upload"):
+            tok = torch.as_tensor(tokens, dtype=torch.int64).to(self.device)
+        with obs.span("decode.launch"):
+            logits, state = M.decode_step(self.cfg, params, state, tok)
+            arg = torch.argmax(logits[:, -1], dim=-1)
+        with obs.span("decode.readback"):
+            arg = arg.cpu().numpy()
+        return arg, state
 
     def write_slot(self, pooled: Pytree, single: Pytree, slot: int) -> Pytree:
         return _write_slot(pooled, single, slot)
@@ -401,6 +413,21 @@ class ServingEngine:
             return False
         return sig == self.slot_signature()
 
+    def _move_bytes(self, sess: Session) -> dict[str, int]:
+        """The ``bytes`` a park or resume copies (one slot: every leaf of
+        the slot template) and the ``live_bytes`` of them that hold the
+        session's rows: a leaf with a sequence axis counts ``min(rows,
+        max_seq) / max_seq`` of its bytes, any other leaf (recurrent state,
+        ``pos``) whole."""
+        rows = min(sess.prompt_len + len(sess.tokens), self.max_seq)
+        total = live = 0
+        for leaf in _leaves(self._slot_template()):
+            n = int(leaf.nbytes)
+            total += n
+            live += n * rows // self.max_seq \
+                if _has_seq_axis(tuple(leaf.shape), self.max_seq) else n
+        return {"bytes": total, "live_bytes": live}
+
     def _cache_xattr(self, sid: int) -> dict[str, Any]:
         return {"engine": self.node, "size": self.slot_bytes(), "sid": sid}
 
@@ -457,15 +484,18 @@ class ServingEngine:
             raise RuntimeError(f"session {sid} already finished")
         if s.slot is None:
             return                                   # already parked
-        state = self.backend.read_slot(self.state, self._slot_template(),
-                                       s.slot)
-        self.store.put(_cache_name(sid), KVSlice(state, self.slot_bytes()),
-                       loc=self.node, tier=self.idle_tier,
-                       xattr=self._cache_xattr(sid))
-        self._free_slots.append(s.slot)
-        s.slot = None
-        self._slotted.pop(sid, None)
-        self.parks += 1
+        with obs.span("engine.park") as sp:
+            if sp.on:
+                sp.set(sid=sid, **self._move_bytes(s))
+            state = self.backend.read_slot(self.state, self._slot_template(),
+                                           s.slot)
+            self.store.put(_cache_name(sid),
+                           KVSlice(state, self.slot_bytes()), loc=self.node,
+                           tier=self.idle_tier, xattr=self._cache_xattr(sid))
+            self._free_slots.append(s.slot)
+            s.slot = None
+            self._slotted.pop(sid, None)
+            self.parks += 1
         self._sanitize_check()
 
     def park_lru(self) -> int | None:
@@ -531,45 +561,53 @@ class ServingEngine:
             return False
         if not self._free_slots:
             raise RuntimeError("engine full")
-        value, _ = self.store.get(_cache_name(sid), at=self.node)
-        if not isinstance(value, KVSlice) or value.state is None:
-            raise RuntimeError(f"session {sid} has no parked KV state")
-        slot = self._free_slots.pop()
-        self.state = self.backend.write_slot(self.state, value.state, slot)
-        s.slot = slot
-        self._slotted[sid] = s
-        self._touch(s)
-        self.resumes += 1
-        self.rehydrates += 1
-        # live again: swap the stored slice back to a sized placeholder in
-        # the top tier (the authoritative KV is in the engine slot now)
-        self.store.put(_cache_name(sid), KVSlice(None, self.slot_bytes()),
-                       loc=self.node, xattr=self._cache_xattr(sid))
+        with obs.span("engine.resume") as sp:
+            if sp.on:
+                sp.set(sid=sid, **self._move_bytes(s))
+            value, _ = self.store.get(_cache_name(sid), at=self.node)
+            if not isinstance(value, KVSlice) or value.state is None:
+                raise RuntimeError(f"session {sid} has no parked KV state")
+            slot = self._free_slots.pop()
+            self.state = self.backend.write_slot(self.state, value.state,
+                                                 slot)
+            s.slot = slot
+            self._slotted[sid] = s
+            self._touch(s)
+            self.resumes += 1
+            self.rehydrates += 1
+            # live again: swap the stored slice back to a sized placeholder
+            # in the top tier (the authoritative KV is in the engine slot now)
+            self.store.put(_cache_name(sid), KVSlice(None, self.slot_bytes()),
+                           loc=self.node, xattr=self._cache_xattr(sid))
         self._sanitize_check()
         return True
 
     # ---------------------------------------------------------------- decode
     def step(self) -> dict[int, int]:
         """One decode step for every live session; returns {sid: new_token}."""
-        live = [s for s in self._slotted.values() if not s.done]
-        if not live:
-            return {}
-        tokens = np.zeros((self.max_batch, 1), np.int32)
-        for s in live:
-            tokens[s.slot, 0] = s.tokens[-1]
-        arg, self.state = self.backend.decode(self.params, self.state, tokens)
-        self.steps += 1
-        out: dict[int, int] = {}
-        for s in live:
-            tok = int(arg[s.slot])
-            s.tokens.append(tok)
-            out[s.sid] = tok
-            self._touch(s)
-            if tok == self.eos_id or \
-                    s.prompt_len + len(s.tokens) >= self.max_seq - 1:
-                self.finish(s.sid)
-        self._sanitize_check()
-        return out
+        with obs.span("engine.step") as sp:
+            live = [s for s in self._slotted.values() if not s.done]
+            if sp.on:
+                sp.set(live=len(live), slots=self.max_batch)
+            if not live:
+                return {}
+            tokens = np.zeros((self.max_batch, 1), np.int32)
+            for s in live:
+                tokens[s.slot, 0] = s.tokens[-1]
+            arg, self.state = self.backend.decode(self.params, self.state,
+                                                  tokens)
+            self.steps += 1
+            out: dict[int, int] = {}
+            for s in live:
+                tok = int(arg[s.slot])
+                s.tokens.append(tok)
+                out[s.sid] = tok
+                self._touch(s)
+                if tok == self.eos_id or \
+                        s.prompt_len + len(s.tokens) >= self.max_seq - 1:
+                    self.finish(s.sid)
+            self._sanitize_check()
+            return out
 
     def finish(self, sid: int) -> list[int]:
         s = self.sessions[sid]
@@ -591,6 +629,14 @@ class ServingEngine:
             self.step()
         self.finish(sid)
         return self.sessions[sid].tokens[:max_new]
+
+
+def _has_seq_axis(shape: tuple, max_seq: int) -> bool:
+    """Whether a slot leaf of ``shape`` has a sequence axis: in every
+    family's layout it follows the batch axis (size 1 in a slot) and is
+    not the last axis."""
+    return any(a == 1 and b == max_seq
+               for a, b in zip(shape[:-2], shape[1:-1]))
 
 
 def _write_slot(pooled: Pytree, single: Pytree, slot: int) -> Pytree:
@@ -627,6 +673,10 @@ def _read_slot(pooled: Pytree, template: Pytree, slot: int) -> Pytree:
         return p.narrow(axis, slot, 1).clone()
 
     return _tree_map(ext, pooled, template)
+
+
+# the ``kind`` attribute of a ``router.follow_up`` span
+_KIND_CODE = {"hit_live": 0, "hit_parked": 1, "migrate": 2}
 
 
 class Router:
@@ -805,29 +855,33 @@ class Router:
         is resumed in place (no prefill); otherwise it migrates: the old
         engine drops it and the target re-prefills ``history``. Returns a
         :class:`RouteDecision` — ``decision.sid`` changes on a migration."""
-        d = self.route(sid)
-        eng = d.engine
-        if d.kind in ("hit_live", "hit_parked"):
-            resumed = self.ensure_active(eng, sid)
+        with obs.span("router.follow_up") as sp:
+            d = self.route(sid)
+            if sp.on:
+                sp.set(sid=sid, kind=_KIND_CODE[d.kind])
+            eng = d.engine
+            if d.kind in ("hit_live", "hit_parked"):
+                resumed = self.ensure_active(eng, sid)
+                self._sanitize_check()
+                return dataclasses.replace(d, resumed=resumed)
+            # migration: the cache holder (if any) discards its copy
+            for e in self.engines.values():
+                s = e.sessions.get(sid)
+                if s is not None and not s.done:
+                    e.finish(sid)
+            if sid in self._unhomed:
+                # a deferred failover session re-prefilled before any
+                # compatible engine joined: its parked-unhomed slice is
+                # superseded
+                del self._unhomed[sid]
+                if self.store.exists(_cache_name(sid)):
+                    self.store.delete(_cache_name(sid))
+            self.migrations += 1
+            if not eng.can_admit():  # engine_for made room already unless flat
+                raise RuntimeError("engine full")
+            new_sid = eng.submit(history)
             self._sanitize_check()
-            return dataclasses.replace(d, resumed=resumed)
-        # migration: the cache holder (if any) discards its copy
-        for e in self.engines.values():
-            s = e.sessions.get(sid)
-            if s is not None and not s.done:
-                e.finish(sid)
-        if sid in self._unhomed:
-            # a deferred failover session re-prefilled before any compatible
-            # engine joined: its parked-unhomed slice is superseded
-            del self._unhomed[sid]
-            if self.store.exists(_cache_name(sid)):
-                self.store.delete(_cache_name(sid))
-        self.migrations += 1
-        if not eng.can_admit():     # engine_for made room already unless flat
-            raise RuntimeError("engine full")
-        new_sid = eng.submit(history)
-        self._sanitize_check()
-        return dataclasses.replace(d, sid=new_sid, prefilled=True)
+            return dataclasses.replace(d, sid=new_sid, prefilled=True)
 
     # -------------------------------------------------------------- failover
     def fail_engine(self, node: int) -> FailoverReport:
