@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sweep-decode-chunks    # decode chunk sizes only
     python3 chip_smoke.py --probe-consistency      # zamba2 decode vs prefill
     python3 chip_smoke.py --train-phase ARCH B S   # one family's train phase
+    python3 chip_smoke.py --serve-phase            # the serve phases only
 
 Run from the root of a checkout, on a machine with one CUDA card. It imports
 nothing of JAX and nothing of the reference package ``repro``; it builds the
@@ -28,7 +29,9 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    the Router: 12 sessions, 32 pooled decode steps, a park + warm + resume
    checked token for token against a never-parked control, and two
    follow-ups; the kernels' launch counts over that run must equal what the
-   path implies (40 per prefill, 40 per decode step);
+   path implies (40 per prefill, 40 per decode step); this and every later
+   serve phase then times and profiles one engine's pooled step op by op
+   and replayed from the engine's captured CUDA graph (``step_modes``);
 5. serves gemma3-12b at full width with its depth cut to 6 layers (one 5:1
    local:global group) so the run stays inside its time limit: one engine, a
    1536-token prompt (longer than the 1024 window), 16 decode steps;
@@ -1042,6 +1045,7 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
     res["profile_decode"] = profile(
         f"one pooled decode step (B={max_batch})",
         lambda: engines[-1].step(), 2)
+    res["step_modes"] = step_modes(torch, engines, label)
     if profile_prompt is not None:
         p_eng = next((e for e in engines if e.can_admit()), None)
         need(p_eng is not None, f"{label}: no free slot for the profiled "
@@ -1065,6 +1069,54 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
     print(f"  peak memory {res['peak_memory_bytes'] / 2**30:.2f} GiB",
           flush=True)
     return res
+
+
+def step_modes(torch, engines, label: str) -> dict:
+    """The last engine's pooled step op by op and replayed from its captured
+    CUDA graph, each timed and profiled (``profile``: host wall, device
+    busy, host launches) on the engine's state once the phase's checks are
+    done, and every engine's graph captures and replays."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.launch.profile_cell import profile
+    eng = engines[-1]
+    b = eng.backend
+    toks = np.zeros((eng.max_batch, 1), np.int32)
+    with torch.no_grad():
+        out = {mode: profile(f"{label}: one pooled step {how} "
+                             f"(B={eng.max_batch})", fn, 4)
+               for mode, how, fn in (
+                   ("eager", "op by op",
+                    lambda: b._decode_eager(eng.params, eng.state, toks)),
+                   ("graphed", "replayed",
+                    lambda: b.decode(eng.params, eng.state, toks)))}
+        # the replay's enqueue alone: the span ``decode.launch`` with the
+        # tracer on and no profiler
+        obs.reset()
+        obs.enable()
+        try:
+            for _ in range(8):
+                b.decode(eng.params, eng.state, toks)
+            spans = [r.seconds for r in obs.records().spans
+                     if r.name == "decode.launch"]
+        finally:
+            obs.disable()
+            obs.reset()
+    out["replay_launch_ms"] = 1e3 * sorted(spans)[len(spans) // 2]
+    out["graph_captures"] = sum(e.backend.graph_captures for e in engines)
+    out["graph_replays"] = sum(e.backend.graph_replays for e in engines)
+    need(b._graph is not None and out["graph_replays"] > 0,
+         f"{label}: the pooled step was never captured and replayed")
+    e, g = out["eager"], out["graphed"]
+    print(f"  [step-modes] {label}: op by op {e['wall_ms']:.3f} ms wall "
+          f"({e['wall_ms_under_profiler']:.3f} profiled), "
+          f"{e['device_busy_ms']:.3f} ms busy; replayed {g['wall_ms']:.3f} "
+          f"ms wall ({g['wall_ms_under_profiler']:.3f} profiled), "
+          f"{g['device_busy_ms']:.3f} ms busy, its launch span "
+          f"{out['replay_launch_ms']:.3f} ms; graph captures "
+          f"{out['graph_captures']}, replays {out['graph_replays']}",
+          flush=True)
+    return out
 
 
 def serve_granite(torch, kern) -> dict:
@@ -1135,6 +1187,7 @@ def serve_gemma(torch, kern) -> dict:
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "launches": {"flash_attention": k1, "decode_attention": k2}}
     print("  " + json.dumps(res), flush=True)
+    res["step_modes"] = step_modes(torch, [eng], f"{full.name} (6 layers)")
     res["consistency"] = check_consistency(torch, M, cfg, model, prompt[:1100],
                                            4, f"{full.name} (6 layers)")
     del eng, store, model
@@ -3376,15 +3429,45 @@ def hint_sites(torch) -> dict:
             "us_per_step": us}
 
 
+def serve_phase(torch, kern) -> tuple[dict, dict]:
+    """Every family's serve phase in turn (items 4-7 of the docstring), each
+    one's memory freed before the next: granite's result and the kernels'
+    launches by path."""
+    t0 = time.perf_counter()
+    granite = serve_granite(torch, kern)
+    free_cuda(torch)
+    print(f"[serve] granite phase done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t0 = time.perf_counter()
+    gemma = serve_gemma(torch, kern)
+    free_cuda(torch)
+    print(f"[serve] gemma phase done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    by_path = {"granite-3-2b": granite["launches"],
+               "gemma3-12b": gemma["launches"]}
+    for name, phase in (("whisper-medium", serve_whisper),
+                        ("llama-3.2-vision-90b", serve_vision),
+                        ("deepseek-v3-671b", serve_deepseek),
+                        ("zamba2-7b", serve_zamba2),
+                        ("rwkv6-1.6b", serve_rwkv)):
+        t0 = time.perf_counter()
+        by_path[name] = phase(torch, kern)["launches"]
+        free_cuda(torch)
+        print(f"[serve] {name} phase done in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    return granite, by_path
+
+
 def main(argv: list[str]) -> int:
     sweep = argv == ["--sweep-decode-chunks"]
     probe = argv == ["--probe-consistency"]
+    serve_only = argv == ["--serve-phase"]
     phase = None
     if argv[:1] == ["--train-phase"] and len(argv) == 4 \
             and argv[2].isdigit() and argv[3].isdigit():
         phase = next((dict(p, B=int(argv[2]), S=int(argv[3]))
                       for p in TRAIN_PHASES if p["arch"] == argv[1]), None)
-    if argv and not (sweep or probe or phase):
+    if argv and not (sweep or probe or phase or serve_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     import torch
@@ -3444,31 +3527,13 @@ def main(argv: list[str]) -> int:
     if phase:
         train_family(torch, kern, phase)
         return 0
+    if serve_only:
+        serve_phase(torch, kern)
+        return 0
     t0 = time.perf_counter()
     rows = kernel_phase(torch, kern)
     print(f"[kernels] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
-    t0 = time.perf_counter()
-    granite = serve_granite(torch, kern)
-    free_cuda(torch)
-    print(f"[serve] granite phase done in {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    t0 = time.perf_counter()
-    gemma = serve_gemma(torch, kern)
-    free_cuda(torch)
-    print(f"[serve] gemma phase done in {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    by_path = {"granite-3-2b": granite["launches"],
-               "gemma3-12b": gemma["launches"]}
-    for name, phase in (("whisper-medium", serve_whisper),
-                        ("llama-3.2-vision-90b", serve_vision),
-                        ("deepseek-v3-671b", serve_deepseek),
-                        ("zamba2-7b", serve_zamba2),
-                        ("rwkv6-1.6b", serve_rwkv)):
-        t0 = time.perf_counter()
-        by_path[name] = phase(torch, kern)["launches"]
-        free_cuda(torch)
-        print(f"[serve] {name} phase done in {time.perf_counter() - t0:.1f}s",
-              flush=True)
+    granite, by_path = serve_phase(torch, kern)
     t0 = time.perf_counter()
     trace = trace_granite(torch, kern)
     free_cuda(torch)

@@ -60,6 +60,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.config import ServingConfig
 from repro_torch.core.locstore import DropReport, JoinReport, LocStore, Placement
 from repro_torch.core.prefetch import PrefetchEngine
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models import model as M
 
 Pytree = Any
@@ -140,6 +141,29 @@ def _leaves(state: Pytree) -> list:
     return [state]
 
 
+def _plain_cuda(t: Any) -> bool:
+    """A CUDA tensor that is neither a DTensor nor another subclass."""
+    return type(t) in (torch.Tensor, torch.nn.Parameter) and t.is_cuda
+
+
+@dataclasses.dataclass
+class _DecodeGraph:
+    """One captured pooled decode step and the buffers it reads and writes
+    besides the pooled state: the tokens on the card, their pinned host
+    copy, the argmax. ``key`` is what the capture baked in (the params
+    object, held here so that its ``id`` is not reused, the batch, and the
+    address, shape and dtype of every state leaf); ``k2`` the decode
+    kernel's launches it recorded."""
+
+    key: tuple
+    params: Any
+    graph: Any
+    tok: torch.Tensor
+    host: torch.Tensor
+    arg: torch.Tensor | None = None
+    k2: int = 0
+
+
 class TorchComputeBackend:
     """The real model-compute backend (and the default): prefill/decode over
     the pooled decode state on one device, slot extraction by tensor
@@ -153,6 +177,10 @@ class TorchComputeBackend:
 
     Runs on ``cuda`` unless ``device`` says otherwise, and raises when there
     is no CUDA device rather than running on the CPU.
+
+    On plain CUDA tensors the pooled decode step is captured once as a CUDA
+    graph and replayed (:meth:`decode`); ``graph_captures`` and
+    ``graph_replays`` count both.
     """
 
     def __init__(self, cfg: ModelConfig, max_seq: int, *,
@@ -162,6 +190,10 @@ class TorchComputeBackend:
         self.max_seq = max_seq
         self.device = resolve_device(device)
         self._template: Pytree | None = None
+        self._graph: _DecodeGraph | None = None
+        self._warm: tuple | None = None     # the key of the last eager step
+        self.graph_captures = 0
+        self.graph_replays = 0
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -226,15 +258,92 @@ class TorchComputeBackend:
     def decode(self, params: Pytree, state: Pytree,
                tokens: np.ndarray) -> tuple[np.ndarray, Pytree]:
         """One pooled decode step; returns (argmax token per slot, state).
-        The pooled cache is updated in place."""
+        The pooled state is updated in place: every leaf, ``pos`` included,
+        stays the same tensor, so the state returned is ``state``.
+
+        Where the params and every state leaf are plain CUDA tensors, the
+        first call on a state runs eagerly (it also loads the kernels and
+        sets up cuBLAS), the second captures the step as a CUDA graph and
+        replays it, and later calls replay it. The graph is keyed on the
+        params object, the batch and the state leaves' addresses, shapes
+        and dtypes: another state (a new ``init_state``) runs eagerly once
+        and is captured again. On the CPU, on meta and on DTensors every
+        call runs eagerly."""
+        key = self._graph_key(params, state, tokens)
+        g = self._graph
+        if key is None or (g is None or g.key != key) and self._warm != key:
+            self._warm = key
+            return self._decode_eager(params, state, tokens), state
+        if g is None or g.key != key:
+            g = self._capture(params, state, tokens, key)
+        with obs.span("decode.upload"):
+            g.host.numpy()[...] = tokens
+            g.tok.copy_(g.host, non_blocking=True)
+        with obs.span("decode.launch") as sp:
+            if sp.on:
+                sp.set(graphed=1, steps=1)
+            g.graph.replay()
+            decode_attention.launches += g.k2
+            self.graph_replays += 1
+        with obs.span("decode.readback"):
+            arg = g.arg.cpu().numpy()
+        return arg, state
+
+    def _decode_eager(self, params: Pytree, state: Pytree,
+                      tokens: np.ndarray) -> np.ndarray:
+        """One pooled decode step op by op (the path of every call that is
+        not replayed)."""
         with obs.span("decode.upload"):
             tok = torch.as_tensor(tokens, dtype=torch.int64).to(self.device)
-        with obs.span("decode.launch"):
-            logits, state = M.decode_step(self.cfg, params, state, tok)
-            arg = torch.argmax(logits[:, -1], dim=-1)
+        with obs.span("decode.launch") as sp:
+            if sp.on:
+                sp.set(graphed=0, steps=1)
+            arg = self._step(params, state, tok)
         with obs.span("decode.readback"):
-            arg = arg.cpu().numpy()
-        return arg, state
+            return arg.cpu().numpy()
+
+    def _step(self, params: Pytree, state: Pytree,
+              tok: torch.Tensor) -> torch.Tensor:
+        """``M.decode_step`` with each leaf it replaced (``pos``) copied
+        back into the state's own tensor; the argmax per slot, on the
+        device."""
+        logits, fresh = M.decode_step(self.cfg, params, state, tok)
+        _tree_map(lambda old, new: old if new is old else old.copy_(new),
+                  state, fresh)
+        return torch.argmax(logits[:, -1], dim=-1)
+
+    def _graph_key(self, params: Pytree, state: Pytree,
+                   tokens: np.ndarray) -> tuple | None:
+        """What a captured step bakes in, or None where the step stays
+        eager: a leaf or a parameter that is not a plain CUDA tensor."""
+        leaves = _leaves(state)
+        if self.device.type != "cuda" or not all(map(_plain_cuda, leaves)) \
+                or not _plain_cuda(next(params.parameters(), None)):
+            return None
+        return (id(params), tokens.shape,
+                tuple((t.data_ptr(), t.shape, t.dtype) for t in leaves))
+
+    def _capture(self, params: Pytree, state: Pytree, tokens: np.ndarray,
+                 key: tuple) -> _DecodeGraph:
+        """Capture the pooled step on ``state`` (nothing runs: the caller
+        replays it for this step's tokens). The last graph goes first, so
+        that its memory pool is freed before the new one fills."""
+        self._graph = None
+        g = _DecodeGraph(
+            key=key, params=params, graph=torch.cuda.CUDAGraph(),
+            tok=torch.zeros(tokens.shape, dtype=torch.int64,
+                            device=self.device),
+            host=torch.zeros(tokens.shape, dtype=torch.int64,
+                             pin_memory=True))
+        n = decode_attention.launches
+        with torch.cuda.device(self.device), torch.cuda.graph(
+                g.graph, capture_error_mode="thread_local"):
+            g.arg = self._step(params, state, g.tok)
+        g.k2 = decode_attention.launches - n
+        decode_attention.launches = n       # recorded, not run
+        self._graph = g
+        self.graph_captures += 1
+        return g
 
     def write_slot(self, pooled: Pytree, single: Pytree, slot: int) -> Pytree:
         return _write_slot(pooled, single, slot)

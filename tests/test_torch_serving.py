@@ -20,16 +20,21 @@ from repro.core.locstore import tiered_hierarchy as jax_tiered
 from repro.models import init_decode_state as jax_init_state
 from repro.models import init_params as jax_init_params
 from repro.serve.engine import ServingEngine as JaxEngine
+from repro_torch import obs
 from repro_torch._bridge import from_reference, state_from_reference, to_numpy
 from repro_torch.analysis.sanitize import SanitizerError
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.core.config import ServingConfig
 from repro_torch.core.locstore import (LocStore, StorageHierarchy, TierSpec,
                                        tiered_hierarchy)
 from repro_torch.core.prefetch import PrefetchEngine
-from repro_torch.models import decode_step, init_decode_state, prefill
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.models import decode_step, init_decode_state, init_params
+from repro_torch.models import model as M
+from repro_torch.models import prefill
 from repro_torch.serve.engine import (KVSlice, Router, ServingEngine,
                                       TorchComputeBackend, _cache_name,
-                                      _read_slot, _write_slot)
+                                      _leaves, _read_slot, _write_slot)
 
 
 @pytest.fixture(scope="module")
@@ -364,6 +369,53 @@ def test_backend_default_device_is_cuda(setup):
                       backend=TorchComputeBackend(cfg, 64, device="cpu"))
 
 
+def test_cpu_engine_steps_eagerly(setup):
+    """On the CPU the pooled step is never captured: every
+    ``decode.launch`` span carries ``graphed`` 0 and ``steps`` 1."""
+    eng = engine(setup, max_batch=2, max_seq=64)
+    eng.submit([5, 6, 7])
+    obs.reset()
+    obs.enable()
+    try:
+        for _ in range(3):
+            eng.step()
+        launches = [r.attrs for r in obs.records().spans
+                    if r.name == "decode.launch"]
+    finally:
+        obs.disable()
+        obs.reset()
+    assert launches == [{"graphed": 0, "steps": 1}] * 3
+    assert eng.backend.graph_captures == eng.backend.graph_replays == 0
+    assert eng.backend._graph is None
+
+
+def test_state_leaves_stay_the_same_tensors(setup):
+    """Submit, steps, park, resume, finish and a submit into the freed slot
+    write the pooled state in place: every leaf, ``pos`` included, is the
+    tensor ``init_state`` made, and ``pos`` holds each live session's
+    length."""
+    store = _tiered_store(1, engine(setup, max_batch=2,
+                                     max_seq=64).slot_bytes())
+    eng = engine(setup, max_batch=2, max_seq=64, node=0, store=store)
+    leaves = _leaves(eng.state)
+    a = eng.submit([5, 6, 7])
+    b = eng.submit([1, 2])
+    for _ in range(2):
+        eng.step()
+    eng.park(a)
+    eng.step()
+    eng.resume(a)
+    eng.step()
+    eng.finish(b)
+    c = eng.submit([9, 8, 7, 6])
+    eng.step()
+    assert all(x is y for x, y in zip(_leaves(eng.state), leaves, strict=True))
+    for sid in (a, c):
+        s = eng.sessions[sid]
+        assert int(eng.state["pos"][s.slot]) \
+            == s.prompt_len + len(s.tokens) - 1
+
+
 def test_parked_slice_bridges_to_numpy(setup):
     eng = engine(setup, max_batch=2, max_seq=32)
     sid = eng.submit([2, 3, 4])
@@ -444,3 +496,122 @@ def test_engine_on_card_matches_reference(setup, cuda):
                 eng.step()
         runs.append((eng.sessions[sid].tokens, eng.sessions[other].tokens))
     assert runs[0] == runs[1]
+
+
+# a smoke config of each family
+FAMILY_ARCHS = ["granite-3-2b", "gemma3-12b", "whisper-medium",
+                "llama-3.2-vision-90b", "deepseek-v3-671b", "zamba2-7b",
+                "rwkv6-1.6b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_every_family_steps_its_state_in_place(arch):
+    """Each family's pooled step writes the state it was given: after
+    submits, steps and a finish every leaf is the tensor ``init_state``
+    made (a leaf ``decode_step`` replaced is copied back), and ``pos`` holds
+    each live session's length."""
+    cfg = get_smoke(arch)
+    eng = ServingEngine(cfg, init_params(cfg, 0, device="cpu"), max_batch=3,
+                        max_seq=64, device="cpu")
+    leaves = _leaves(eng.state)
+    a, b = eng.submit([5, 6, 7]), eng.submit([1, 2])
+    eng.step()
+    eng.finish(b)
+    eng.step()
+    assert all(x is y for x, y in zip(_leaves(eng.state), leaves, strict=True))
+    s = eng.sessions[a]
+    assert int(eng.state["pos"][s.slot]) == s.prompt_len + len(s.tokens) - 1
+
+
+class _EagerBackend(TorchComputeBackend):
+    """Every pooled step op by op: the control of the captured step."""
+
+    @torch.no_grad()
+    def decode(self, params, state, tokens):
+        return self._decode_eager(params, state, tokens), state
+
+
+# each family's smoke config, and granite-3-2b at published width cut to 4
+# layers and 16 slots
+CARD_CASES = FAMILY_ARCHS + ["granite-3-2b-4x16"]
+
+
+def _card_case(name):
+    """(cfg, max_batch, max_seq, prompt lengths, decode kernel launches a
+    pooled step)."""
+    if name == "granite-3-2b-4x16":
+        cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
+        B, S, lens = 16, 2048, [700, 300, 1024, 50, 900]
+    else:
+        cfg, B, S, lens = get_smoke(name), 4, 128, [20, 9, 33, 14]
+    k2 = {"encdec": 2 * cfg.n_layers, "rwkv": 0,
+          "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+          "moe": 0 if cfg.mla is not None else cfg.n_layers
+          }.get(cfg.family, cfg.n_layers)
+    return cfg, B, S, lens, k2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CARD_CASES)
+def test_captured_step_equals_eager_bit_for_bit(name, cuda):
+    """One engine replays the captured pooled step, one runs it op by op,
+    both driven alike: submits, 64 steps with a park, a resume, a finish
+    and a submit into the freed slot. Tokens are equal at every step, the
+    pooled states bit for bit at the end; each replay counts the decode
+    kernel's launches it ran; a new state is captured again."""
+    cfg, B, S, lens, k2 = _card_case(name)
+    model = init_params(cfg, 0, device=cuda)
+    if cfg.family == "vlm":              # tanh(0) would cut the cross layers
+        with torch.no_grad():
+            for xp in model.cross_blocks:
+                xp["gate"].fill_(0.5)
+                xp["gate_mlp"].fill_(0.5)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    key = M._EXTRAS.get(cfg.family)
+    n_extra = cfg.n_frames if key == "frames" else cfg.n_patches
+    extras = [None if key is None else
+              {key: torch.randn((1, n_extra, cfg.d_model), generator=gen,
+                                device=cuda).to(torch.bfloat16)}
+              for _ in prompts]
+    kv = TorchComputeBackend(cfg, S, device=cuda).slot_nbytes()
+    engines = [ServingEngine(cfg, model, backend=b, node=0,
+                             store=_tiered_store(1, kv, slots_per_node=B),
+                             config=ServingConfig(max_batch=B, max_seq=S))
+               for b in (TorchComputeBackend(cfg, S, device=cuda),
+                         _EagerBackend(cfg, S, device=cuda))]
+    sids = [[e.submit(p, x) for p, x in zip(prompts[:3], extras[:3])]
+            for e in engines]
+    for i in range(64):
+        for e, s in zip(engines, sids):
+            if i == 16:
+                e.park(s[0])
+            elif i == 24:
+                assert e.resume(s[0])
+            elif i == 32:
+                e.finish(s[1])
+                s.append(e.submit(prompts[3], extras[3]))
+        seen = []
+        for e, s in zip(engines, sids):
+            n = decode_attention.launches
+            out = e.step()
+            seen.append(([out.get(x) for x in s],
+                         decode_attention.launches - n))
+        assert seen[0] == seen[1], (i, seen)
+        assert seen[0][1] == k2, (i, seen)
+    g, ctrl = engines
+    assert g.backend.graph_captures == 1
+    assert g.backend.graph_replays == g.steps - 1 == 63
+    assert ctrl.backend.graph_captures == 0
+    for x, y in zip(_leaves(g.state), _leaves(ctrl.state), strict=True):
+        assert torch.equal(x, y)
+    # a new state: one eager step, then a capture of its own
+    tokens = np.zeros((B, 1), np.int32)
+    b, old = g.backend, g.backend._graph.key
+    state = b.init_state(B)
+    b.decode(model, state, tokens)
+    assert b.graph_captures == 1
+    b.decode(model, state, tokens)
+    assert b.graph_captures == 2 and b._graph.key != old
