@@ -4,8 +4,10 @@
 configuration's sizes are ``bench/configs/<config>.json``, the traffic's
 parameters ``bench/mixes/<traffic>.json``, whose ``driver`` names the loop
 in ``bench/drivers/<driver>.py``; each per-layer metric is read by
-``bench/metrics/<metric>.py``. Nothing here names a cell: a later cell or
-metric is a new file and a new entry.
+``bench/metrics/<metric>.py``; what the benchmark knows of the model's
+family (its weights' init, its FLOPs, its attention calls) is
+``bench/families/<family>.py``. Nothing here names a cell or a family: a
+later cell, metric or family is a new file and a new entry.
 """
 
 from __future__ import annotations
@@ -71,6 +73,8 @@ def load_cell(name: str, spec: dict | None = None, bench: Path = BENCH
                        f"({sorted(cells)})")
     w = cells[name]
     conf = next(c for c in spec["configs"] if c["name"] == w["config"])
+    config = load_json(bench.parent / conf["file"])
+    family_rules(config["model"], bench / "families")
     e2e = [m for m in spec["end_to_end"]
            if "workloads" not in m or name in m["workloads"]]
     names = {m["name"] for m in e2e}
@@ -78,9 +82,33 @@ def load_cell(name: str, spec: dict | None = None, bench: Path = BENCH
              if (name in m["workloads"] if "workloads" in m
                  else m["moves"] in names)]
     return Cell(name=name, chips=int(w["chips"]),
-                config=load_json(bench.parent / conf["file"]),
+                config=config,
                 mix=load_json(bench / "mixes" / f"{w['traffic']}.json"),
                 end_to_end=e2e, per_layer=layer)
+
+
+def family_rules(model: dict, families: Path = BENCH / "families"):
+    """The module ``<families>/<family>.py`` of the configuration's model
+    family (``model["family"]``). It imports nothing of the program and
+    defines:
+
+    - ``leaf_init(name, shape, model) -> (scale, shift)``: the leaf is drawn
+      from N(shift, scale^2), a constant ``shift`` where scale is 0; a leaf
+      it has no rule for raises ValueError;
+    - ``serve_flops(model, prefill_lengths, decode_tokens, decode_ctx)``:
+      the model FLOPs of a serving window;
+    - ``attention_calls(model) -> [(Hq, Hkv, hd, dv, window), ...]``: the
+      K1 calls of one prefill, which are the K2 calls of one decode step,
+      one entry a call.
+
+    Raises FileNotFoundError, naming the file to add, where there is none.
+    """
+    path = families / f"{model['family']}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"no rules for model family {model['family']!r}: add {path} "
+            f"(leaf_init, serve_flops, attention_calls)")
+    return load_module(path, "bench_family_" + model["family"])
 
 
 @dataclasses.dataclass

@@ -3,6 +3,9 @@ inputs and calls one of these. A reader that finds nothing returns None."""
 
 from __future__ import annotations
 
+import collections
+
+import harness
 from work import peaks, roofline
 
 
@@ -30,15 +33,16 @@ def _itemsize(model: dict) -> int:
         else 4
 
 
-def _dims(model: dict) -> tuple[int, int, int]:
-    hd = model.get("head_dim") or model["d_model"] // model["n_heads"]
-    return model["n_heads"], model["n_kv_heads"], hd
+def _attention_calls(model: dict) -> list[tuple]:
+    """The family's (Hq, Hkv, hd, dv, window) of each attention call."""
+    return harness.family_rules(model).attention_calls(model)
 
 
 def k1_roofline(rec, kernels, cases) -> float | None:
-    """Percent: the least time of the K1 calls ``cases`` (flash_work's
-    operations and bytes at the card's peaks) over the device time of the
-    traced slice's events named by ``kernels``."""
+    """Percent: the least time of the K1 calls ``cases``, each a
+    (flash_work case, dv) pair (flash_work's operations and bytes at the
+    card's peaks), over the device time of the traced slice's events named
+    by ``kernels``."""
     p = rec.profile
     if p is None or not cases:
         return None
@@ -46,24 +50,24 @@ def k1_roofline(rec, kernels, cases) -> float | None:
     if t <= 0:
         return None
     size = _itemsize(rec.work["model"])
-    least = sum(peaks.least_seconds(*roofline.flash_work(c, size))
-                for c in cases)
+    least = sum(peaks.least_seconds(*roofline.flash_work(c, size, dv))
+                for c, dv in cases)
     return 100.0 * least / t
 
 
 def prefill_cases(rec, prompts) -> list[tuple]:
-    """K1's case for each prefill of ``prompts`` tokens: one call a layer
-    (causal, no window)."""
-    model = rec.work["model"]
-    Hq, Hkv, hd = _dims(model)
-    return [(1, S, S, Hq, Hkv, hd, True, 0, 0)
-            for S in prompts for _ in range(model["n_layers"])]
+    """K1's (case, dv) for each prefill of ``prompts`` tokens: each of the
+    family's attention calls, causal, at the prompt's length."""
+    calls = _attention_calls(rec.work["model"])
+    return [((1, S, S, Hq, Hkv, hd, True, window, 0), dv)
+            for S in prompts for Hq, Hkv, hd, dv, window in calls]
 
 
 def k2_roofline(rec, kernels) -> float | None:
     """Percent: decode_work's least time of every K2 call of the traced
-    slice (one a layer, each step at its slots' lengths)
-    over the device time of the events named by ``kernels``."""
+    slice (each of the family's attention calls, each step at its slots'
+    lengths; K2 reads V at hd) over the device time of the events named by
+    ``kernels``."""
     p = rec.profile
     steps = rec.work.get("k2_lengths")
     if p is None or not steps:
@@ -72,12 +76,13 @@ def k2_roofline(rec, kernels) -> float | None:
     if t <= 0:
         return None
     model = rec.work["model"]
-    Hq, Hkv, hd = _dims(model)
     size = _itemsize(model)
-    per = model["n_layers"]
+    calls = collections.Counter((Hq, Hkv, hd, window) for Hq, Hkv, hd, _,
+                                window in _attention_calls(model))
     least = 0.0
     for lengths in steps:
-        case = (len(lengths), rec.work["max_seq"], Hq, Hkv, hd, 0)
-        least += per * peaks.least_seconds(
-            *roofline.decode_work(case, lengths, size))
+        for (Hq, Hkv, hd, window), n in calls.items():
+            case = (len(lengths), rec.work["max_seq"], Hq, Hkv, hd, window)
+            least += n * peaks.least_seconds(
+                *roofline.decode_work(case, lengths, size))
     return 100.0 * least / t
