@@ -83,6 +83,13 @@ class ModelConfig:
     ssm_expand: int = 2
     attn_every: int = 0                  # shared attn applied after every k SSM layers
     ssm_head_dim: int = 64
+    mamba_ngroups: int = 1               # B / C groups, each read by H / groups heads
+    # the published Zamba2 block, named after its config.json's keys; the
+    # defaults keep the block above (one shared block after every
+    # attn_every layers, over h alone, with its own residuals)
+    hybrid_layer_ids: tuple[int, ...] = ()   # a block runs before these layers
+    num_mem_blocks: int = 1              # shared blocks, used in turn
+    adapter_rank: int = 0                # each application's LoRA on the MLP
 
     # -- RWKV ---------------------------------------------------------------------
     rwkv_head_dim: int = 64
@@ -100,7 +107,24 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
 
+    def __post_init__(self) -> None:
+        # a configuration file's JSON list, kept hashable
+        object.__setattr__(self, "hybrid_layer_ids",
+                           tuple(self.hybrid_layer_ids))
+
     # ------------------------------------------------------------ derived
+    @property
+    def published_zamba2(self) -> bool:
+        """The hybrid family's published block (``hybrid_layer_ids`` set)."""
+        return bool(self.hybrid_layer_ids)
+
+    @property
+    def applications(self) -> tuple[int, ...]:
+        """The layers a shared block runs before: ``hybrid_layer_ids``
+        below ``n_layers`` (a configuration cut in depth keeps the
+        applications among its layers)."""
+        return tuple(i for i in self.hybrid_layer_ids if i < self.n_layers)
+
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
@@ -130,7 +154,18 @@ class ModelConfig:
         if self.family == "localglobal":
             assert self.sliding_window > 0 and self.global_every > 0
         if self.family == "hybrid":
-            assert self.ssm_state > 0 and self.attn_every > 0
+            assert self.ssm_state > 0
+            d_in = self.ssm_expand * self.d_model
+            assert d_in // self.ssm_head_dim % self.mamba_ngroups == 0, \
+                "mamba heads must be a multiple of mamba_ngroups"
+            ids = self.hybrid_layer_ids
+            if not ids:
+                assert self.attn_every > 0
+                assert (self.num_mem_blocks, self.adapter_rank) == (1, 0), \
+                    "the published block's options need hybrid_layer_ids"
+            else:
+                assert list(ids) == sorted(set(ids)) and 0 <= ids[0]
+                assert self.num_mem_blocks > 0 and self.adapter_rank > 0
         if self.family == "encdec":
             assert self.encoder_layers > 0
         if self.family == "vlm":

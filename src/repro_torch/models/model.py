@@ -31,6 +31,9 @@ packages:
                         "ssm": (G*A, B, H, P, N)} (f32),
                         "attn_k", "attn_v": (G, B, S, Hkv, hd),
                         "tail": {"conv", "ssm"} of the tail layers}
+                       published zamba2 (``hybrid_layer_ids``): {"pos",
+                        "conv", "ssm": (L, B, ...) (f32),
+                        "attn_k", "attn_v": (n_apps, B, S, Hkv, hd)}
   rwkv                 {"pos", "tm_x", "cm_x": (L, B, d), "wkv": (L, B, H, K, K)}
                        (f32; the same size whatever the length)
 
@@ -70,7 +73,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.hints import get_rules, hint, sharding_rules, tp_divides
@@ -188,10 +191,11 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 # ------------------------------------------------------------ shared layers
 def _attn_prefill(cfg: ModelConfig, attn, hn: torch.Tensor,
                   positions: torch.Tensor, window: int = 0,
-                  kv=None) -> torch.Tensor:
+                  kv=None, scale: float | None = None) -> torch.Tensor:
     """Causal GQA self attention of a whole sequence, projected back to d.
     With ``kv=(ck, cv)`` (B, S_max, Hkv, hd) the rotated keys and the values
-    are written into ``[:, :S]``."""
+    are written into ``[:, :S]``. ``scale``: the softmax's (default
+    hd ** -0.5)."""
     q = split_heads(hn @ attn["wq"], cfg.n_heads, cfg.hd)
     k = split_heads(hn @ attn["wk"], cfg.n_kv_heads, cfg.hd)
     v = split_heads(hn @ attn["wv"], cfg.n_kv_heads, cfg.hd)
@@ -203,14 +207,14 @@ def _attn_prefill(cfg: ModelConfig, attn, hn: torch.Tensor,
     q = hint(q, "dp", "sq", "tp", None)
     k = hint(k, "dp", "sp", "tp", None)
     v = hint(v, "dp", "sp", "tp", None)
-    o = hint(attention_op(q, k, v, causal=True, window=window),
-             "dp", "sq", "tp", None)
+    o = hint(attention_op(q, k, v, causal=True, window=window,
+                          softmax_scale=scale), "dp", "sq", "tp", None)
     return merge_heads(o) @ attn["wo"]
 
 
 def _attn_decode(cfg: ModelConfig, attn, hn: torch.Tensor, ck: torch.Tensor,
                  cv: torch.Tensor, pos: torch.Tensor, lengths: torch.Tensor,
-                 window: int = 0) -> torch.Tensor:
+                 window: int = 0, scale: float | None = None) -> torch.Tensor:
     """One decode position of GQA self attention: the new K/V row is written
     into ``ck``/``cv`` (B, S, Hkv, hd) in place, then attended."""
     B = hn.shape[0]
@@ -221,7 +225,8 @@ def _attn_decode(cfg: ModelConfig, attn, hn: torch.Tensor, ck: torch.Tensor,
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
     cache_update(ck, cv, k, v, pos)
     q, ck, cv = _hint_decode(q[:, 0], ck, cv)
-    o = decode_attention_op(q, ck, cv, lengths, window=window)
+    o = decode_attention_op(q, ck, cv, lengths, window=window,
+                            softmax_scale=scale)
     return o.reshape(B, 1, -1) @ attn["wo"]
 
 
@@ -774,17 +779,23 @@ class HybridLM(_LM):
                                    positions, 0, kv))
         return self._mlp(h)
 
-    def _mamba_layer(self, p, h: torch.Tensor,
-                     st: dict | None = None) -> torch.Tensor:
-        """One Mamba2 layer; with ``st`` ({conv, ssm} of this layer) its
-        exact post-sequence state is written there."""
-        x = rms_norm(h, p["norm"], self.cfg.norm_eps)
+    def _mamba_layer(self, p, h: torch.Tensor, st: dict | None = None,
+                     add: torch.Tensor | None = None) -> torch.Tensor:
+        """One Mamba2 layer, ``h + mamba2(norm(h + add))``; with ``st``
+        ({conv, ssm} of this layer) its exact post-sequence state is
+        written there."""
+        x = rms_norm(h if add is None else h + add, p["norm"],
+                     self.cfg.norm_eps)
         if st is None:
             return _res(h + ssm_mod.mamba2_block(self.cfg, p["mamba"], x))
-        y, new = ssm_mod.mamba2_block(self.cfg, p["mamba"], x,
-                                      return_state=True)
-        write_state(st["conv"], new["conv"])
-        write_state(st["ssm"], new["ssm"])
+        with obs.span("mamba.prefill") as sp:
+            if sp.on:
+                S = x.shape[1]
+                sp.set(tokens=S, chunks=ssm_mod.n_chunks(S))
+            y, new = ssm_mod.mamba2_block(self.cfg, p["mamba"], x,
+                                          return_state=True)
+            write_state(st["conv"], new["conv"])
+            write_state(st["ssm"], new["ssm"])
         return _res(h + y)
 
     def hidden(self, tokens: torch.Tensor, *,
@@ -798,9 +809,15 @@ class HybridLM(_LM):
         positions = _positions(B, S, tokens.device)
         for p, key, i in self._layers():
             if p is None:
-                kv = None if state is None \
-                    else (state["attn_k"][i], state["attn_v"][i])
-                h = _run(remat, self._shared_block, h, positions, kv)
+                if state is None:
+                    h = _run(remat, self._shared_block, h, positions)
+                    continue
+                with obs.span("hybrid.shared") as sp:
+                    if sp.on:
+                        sp.set(block=0, app=i, tokens=S)
+                    h = self._shared_block(h, positions,
+                                           (state["attn_k"][i],
+                                            state["attn_v"][i]))
                 continue
             st = None if state is None else {k: state[key][k][i]
                                              for k in ("conv", "ssm")}
@@ -836,6 +853,109 @@ class HybridLM(_LM):
             y, new = ssm_mod.mamba2_step(cfg, p["mamba"],
                                          {"conv": conv, "ssm": ssm},
                                          rms_norm(h, p["norm"], eps))
+            write_state(conv, new["conv"])
+            write_state(ssm, new["ssm"])
+            h = _res(h + y)
+        return self._head(self._final(h)), dict(state, pos=pos + 1)
+
+
+class Zamba2LM(HybridLM):
+    """zamba2 as published (``cfg.hybrid_layer_ids`` set): ``layers[i]``
+    are the Mamba2 layers. Before each layer ``i`` listed in
+    ``hybrid_layer_ids`` (its k-th entry) the shared block ``blocks[k %
+    num_mem_blocks]`` runs on ``a = norm(concat[h, e])`` (``e`` the token
+    embedding): attention
+    at softmax scale (hd / 2) ** -0.5, ``o`` back to d, ``m = norm(o)``,
+    the gated MLP ``(gelu(g) * u) @ fc2`` with ``g, u`` the halves of ``m @
+    fc1`` plus application k's adapter ``(m @ adapter_in) @ adapter_out``,
+    then application k's own ``linear``. That output is added to the Mamba2
+    layer's input, not to the residual: ``h + mamba2(norm(h + t))``. The
+    decode state: ``conv`` and ``ssm`` (L, B, ...) and ``attn_k`` /
+    ``attn_v`` (n_apps, B, S, Hkv, hd). The Mamba2 layer, ``forward`` and
+    ``prefill`` are :class:`HybridLM`'s."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict) -> None:
+        _LM.__init__(self, cfg, tree["embed"], tree["final_norm"])
+        self.layers = _blocks(tree["layers"], cfg.n_layers, "mamba layers")
+        self.blocks = _blocks(tree["blocks"], cfg.num_mem_blocks,
+                              "shared blocks")
+        self.apps = _blocks(tree.get("apps", []), len(cfg.applications),
+                            "block applications")
+        self.app_of = {i: k for k, i in enumerate(cfg.applications)}
+        self.scale = (cfg.hd / 2) ** -0.5
+
+    def _block_in(self, blk, h: torch.Tensor, e: torch.Tensor):
+        """The block's input, ``norm(concat[h, e])``."""
+        return rms_norm(torch.cat([h, e], dim=-1), blk["ln"],
+                        self.cfg.norm_eps)
+
+    def _block_out(self, k: int, o: torch.Tensor) -> torch.Tensor:
+        """From application k's attention output ``o`` (…, d): its MLP with
+        the adapter, through its linear."""
+        blk, app = self.blocks[k % self.cfg.num_mem_blocks], self.apps[k]
+        m = rms_norm(o, blk["ln2"], self.cfg.norm_eps)
+        gu = m @ blk["mlp"]["fc1"] \
+            + (m @ app["adapter_in"]) @ app["adapter_out"]
+        g, u = gu.chunk(2, dim=-1)
+        return ((torch.nn.functional.gelu(g) * u) @ blk["mlp"]["fc2"]) \
+            @ app["linear"]
+
+    def _shared(self, k: int, h: torch.Tensor, e: torch.Tensor, positions,
+                kv=None) -> torch.Tensor:
+        """Application k of its block over a whole sequence (its K/V
+        written into ``kv`` when given): what it adds to the next Mamba2
+        layer's input."""
+        blk = self.blocks[k % self.cfg.num_mem_blocks]
+        o = _attn_prefill(self.cfg, blk["attn"], self._block_in(blk, h, e),
+                          positions, 0, kv, self.scale)
+        return self._block_out(k, o)
+
+    def hidden(self, tokens: torch.Tensor, *,
+               state: dict | None = None) -> torch.Tensor:
+        """Final-normed hidden states of the chunked (parallel) pass. With
+        ``state`` each Mamba2 layer's exact post-sequence {conv, ssm} state
+        and each application's K/V (``[:, :S]``) are written into it."""
+        remat = self._remat(state is not None)
+        B, S = tokens.shape
+        e = _embed(self.embed, tokens)
+        h = e
+        positions = _positions(B, S, tokens.device)
+        for i, p in enumerate(self.layers):
+            k, add = self.app_of.get(i), None
+            if k is not None and state is None:
+                add = _run(remat, self._shared, k, h, e, positions)
+            elif k is not None:
+                with obs.span("hybrid.shared") as sp:
+                    if sp.on:
+                        sp.set(block=k % self.cfg.num_mem_blocks, app=k,
+                               tokens=S)
+                    add = self._shared(k, h, e, positions,
+                                       (state["attn_k"][k],
+                                        state["attn_v"][k]))
+            st = None if state is None else {n: state[n][i]
+                                             for n in ("conv", "ssm")}
+            h = _run(remat, self._mamba_layer, p, h, st, add)
+        return self._final(h)
+
+    def decode_step(self, state: dict, tokens: torch.Tensor):
+        cfg = self.cfg
+        pos = state["pos"]
+        lengths = (pos + 1).to(torch.int32)
+        e = _embed(self.embed, tokens)
+        h = e
+        for i, p in enumerate(self.layers):
+            k, add = self.app_of.get(i), None
+            if k is not None:
+                blk = self.blocks[k % cfg.num_mem_blocks]
+                o = _attn_decode(cfg, blk["attn"], self._block_in(blk, h, e),
+                                 state["attn_k"][k], state["attn_v"][k], pos,
+                                 lengths, 0, self.scale)
+                add = self._block_out(k, o)
+            conv, ssm = state["conv"][i], state["ssm"][i]
+            y, new = ssm_mod.mamba2_step(
+                cfg, p["mamba"], {"conv": conv, "ssm": ssm},
+                rms_norm(h if add is None else h + add, p["norm"],
+                         cfg.norm_eps))
             write_state(conv, new["conv"])
             write_state(ssm, new["ssm"])
             h = _res(h + y)
@@ -942,6 +1062,8 @@ def _init_tree(cfg: ModelConfig, gen: torch.Generator | None,
             {"ln": zeros(), "attn": attn(), "gate": zeros((), torch.float32),
              "ln2": zeros(), "mlp": mlp(),
              "gate_mlp": zeros((), torch.float32)} for _ in range(G)]
+    elif cfg.family == "hybrid" and cfg.published_zamba2:
+        tree.update(_zamba2_tree(cfg, gen, dev))
     elif cfg.family == "hybrid":
         G, tail = _hybrid_layout(cfg)
 
@@ -989,6 +1111,41 @@ def _init_tree(cfg: ModelConfig, gen: torch.Generator | None,
     return tree
 
 
+def _zamba2_tree(cfg: ModelConfig, gen: torch.Generator | None,
+                 dev: torch.device) -> dict:
+    """The published block's leaves (:class:`Zamba2LM`): ``layers``,
+    ``blocks`` and ``apps``, at the other families' init scales (a
+    projection 1 / sqrt(d_in), one that writes its block's output also over
+    sqrt(2 L))."""
+    dt, d, L = _dtype(cfg), cfg.d_model, cfg.n_layers
+    da = 2 * d                                  # concat[h, e]
+    H, Hkv, hd, ff, r = (cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff,
+                         cfg.adapter_rank)
+
+    def lin(d_in, d_out, out=False):
+        return init_linear(gen, d_in, d_out, dt, scale=(
+            1.0 / d_in ** 0.5 / (2.0 * L) ** 0.5) if out else None)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dt, device=dev)
+
+    def app():
+        return {"linear": lin(d, d, out=True), "adapter_in": lin(d, r),
+                "adapter_out": lin(r, 2 * ff)}
+
+    return {
+        "layers": [{"norm": zeros(d), "mamba": ssm_mod.init_mamba2(
+            gen, cfg, dt, L, device=dev)} for _ in range(L)],
+        "blocks": [{"ln": zeros(da),
+                    "attn": {"wq": lin(da, H * hd), "wk": lin(da, Hkv * hd),
+                             "wv": lin(da, Hkv * hd),
+                             "wo": lin(H * hd, d, out=True)},
+                    "ln2": zeros(d),
+                    "mlp": {"fc1": lin(d, 2 * ff), "fc2": lin(ff, d, out=True)}}
+                   for _ in range(cfg.num_mem_blocks)],
+        "apps": [app() for _ in cfg.applications]}
+
+
 _CLASSES = {"dense": DenseLM, "localglobal": DenseLM, "encdec": EncDecLM,
             "vlm": VisionLM, "moe": MoeLM, "hybrid": HybridLM, "rwkv": RwkvLM}
 
@@ -998,6 +1155,8 @@ def build_model(cfg: ModelConfig, tree: dict) -> _LM:
     :func:`_init_tree` (``repro_torch._bridge`` builds one from the
     reference's params)."""
     _check_family(cfg)
+    if cfg.family == "hybrid" and cfg.published_zamba2:
+        return Zamba2LM(cfg, tree)
     return _CLASSES[cfg.family](cfg, tree)
 
 
@@ -1120,6 +1279,13 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, *,
         state.update(k=z(G, S_per, batch, max_seq, *kv),
                      v=z(G, S_per, batch, max_seq, *kv),
                      xk=z(G, batch, P, *kv), xv=z(G, batch, P, *kv))
+    elif cfg.family == "hybrid" and cfg.published_zamba2:
+        st = ssm_mod.mamba2_init_state(cfg, cfg.n_layers * batch, device=dev)
+        n = len(cfg.applications)
+        state.update({k: v.reshape(cfg.n_layers, batch, *v.shape[1:])
+                      for k, v in st.items()},
+                     attn_k=z(n, batch, max_seq, *kv),
+                     attn_v=z(n, batch, max_seq, *kv))
     elif cfg.family == "hybrid":
         G, tail = _hybrid_layout(cfg)
 

@@ -19,6 +19,11 @@ kernel here in the reference: these are plain torch ops, products in
 ``einsum`` takes more than two operands, so the contraction order does not
 depend on whether ``opt_einsum`` is installed.
 
+With ``mamba_ngroups`` G > 1 the fused projection carries G groups of B
+and C, group g read by heads [g H/G, (g+1) H/G), and the gated RMSNorm
+before ``out_proj`` normalises each group's d_inner/G channels on its own
+(Zamba2's ``RMSNormGated``); G = 1 is the reference's form, unchanged.
+
 Decode is the O(1) recurrent step on (conv window, SSM state).
 """
 
@@ -44,17 +49,23 @@ def ssm_dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
     return d_in, d_in // P, P, cfg.ssm_state
 
 
+def n_chunks(S: int) -> int:
+    """Chunks of the prefill's SSD over S tokens."""
+    return -(-S // min(CHUNK, S))
+
+
 def init_mamba2(gen: torch.Generator | None, cfg: ModelConfig, dtype,
                 n_layers: int = 1, *, device=None) -> dict[str, torch.Tensor]:
     """The reference's init scales, drawn from ``gen`` (``None``: meta)."""
     d = cfg.d_model
     d_in, H, P, N = ssm_dims(cfg)
-    conv_ch = d_in + 2 * N
+    GN = cfg.mamba_ngroups * N
+    conv_ch = d_in + 2 * GN
     dev = "meta" if gen is None else device
     f32 = torch.float32
     return {
         # fused input projection: [z, x, B, C, dt]
-        "in_proj": init_linear(gen, d, 2 * d_in + 2 * N + H, dtype),
+        "in_proj": init_linear(gen, d, 2 * d_in + 2 * GN + H, dtype),
         "conv_w": uniform_scale_init(gen, (cfg.ssm_conv, conv_ch), dtype, 0.1),
         "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
         "A_log": torch.log(torch.linspace(1.0, 16.0, H, dtype=f32,
@@ -69,9 +80,25 @@ def init_mamba2(gen: torch.Generator | None, cfg: ModelConfig, dtype,
 
 
 def _split_proj(cfg: ModelConfig, proj: torch.Tensor):
-    """(z, x, B, C, dt) of the fused input projection."""
+    """(z, x, B, C, dt) of the fused input projection; B and C hold every
+    group's N columns."""
     d_in, H, P, N = ssm_dims(cfg)
-    return torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
+    GN = cfg.mamba_ngroups * N
+    return torch.split(proj, [d_in, d_in, GN, GN, H], dim=-1)
+
+
+def _segments(cfg: ModelConfig, h0: int, h: int) -> list[tuple[int, int,
+                                                               int]]:
+    """(group, first, end) of heads [h0, h0 + h) by B/C group, ``first``
+    and ``end`` counted from h0."""
+    per = ssm_dims(cfg)[1] // cfg.mamba_ngroups
+    out, a = [], h0
+    while a < h0 + h:
+        g = a // per
+        b = min(h0 + h, (g + 1) * per)
+        out.append((g, a - h0, b - h0))
+        a = b
+    return out
 
 
 def _conv1d(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -95,8 +122,8 @@ def _conv1d(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
 
 def _heads(cfg: ModelConfig, proj: torch.Tensor, h0: int, h: int):
     """(z, x, B, C, dt) of the fused projection ``proj`` (its whole
-    columns): z, x and dt of heads [h0, h0 + h), B and C (shared by every
-    head) whole."""
+    columns): z, x and dt of heads [h0, h0 + h), B and C (every group)
+    whole."""
     d_in, H, P, N = ssm_dims(cfg)
     z, xc, Bc, Cc, dt = _split_proj(cfg, proj)
     if h == H:
@@ -113,10 +140,11 @@ def _channels(cfg: ModelConfig, t: torch.Tensor, h0: int, h: int):
     return torch.cat([t[..., h0 * P:(h0 + h) * P], t[..., d_in:]], dim=-1)
 
 
-def _ssd_scan(xs, Bg, Cg, dtg, lg):
+def _ssd_scan(xs, Bg, Cg, dtg, lg, segs):
     """The chunked SSD of chunks (B, nc, Q, ...): x (h, P) in its dtype,
-    B / C (N) in f32, dt and the log-decay (h) in f32. Returns y (B, nc, h,
-    Q, P) and the state (B, h, P, N) after the last chunk, in f32. Plain
+    B / C (G, N) in f32, dt and the log-decay (h) in f32; ``segs`` the
+    (group, first, end) of the heads (:func:`_segments`). Returns y (B, nc,
+    h, Q, P) and the state (B, h, P, N) after the last chunk, in f32. Plain
     tensors only: on a sharded model it runs on each rank's heads."""
     B, nc, Q, h, P = xs.shape
     N = Bg.shape[-1]
@@ -129,14 +157,20 @@ def _ssd_scan(xs, Bg, Cg, dtg, lg):
     causal = torch.ones((Q, Q), dtype=torch.bool, device=xs.device).tril()
     L = torch.exp(torch.where(causal, lh[..., :, None] - lh[..., None, :],
                               NEG_INF))
-    cb = Cg @ Bg.transpose(-1, -2)                         # (B,nc,Q,Q) t,s
-    # intra-chunk: y[t] = sum_s cb[t,s] L[h,t,s] dt[s,h] x[s,h,:]
-    W = cb[:, :, None] * L * dtg.transpose(2, 3)[:, :, :, None, :]
-    y = W @ xf.permute(0, 1, 3, 2, 4)                      # (B,nc,h,Q,P)
     # each chunk's own contribution to the state at its end
     decay_to_end = torch.exp(l[:, :, -1:] - l)             # (B,nc,Q,h)
     dx = xf * (dtg * decay_to_end)[..., None]              # (B,nc,Q,h,P)
-    inc = torch.einsum("bcshp,bcsn->bchpn", dx, Bg)        # (B,nc,h,P,N)
+    ys, incs = [], []
+    for g, a, b in segs:                 # heads [a, b) read group g
+        cb = Cg[..., g, :] @ Bg[..., g, :].transpose(-1, -2)   # (B,nc,Q,Q)
+        # intra-chunk: y[t] = sum_s cb[t,s] L[h,t,s] dt[s,h] x[s,h,:]
+        W = cb[:, :, None] * L[:, :, a:b] \
+            * dtg[..., a:b].transpose(2, 3)[:, :, :, None, :]
+        ys.append(W @ xf[..., a:b, :].permute(0, 1, 3, 2, 4))  # (B,nc,h,Q,P)
+        incs.append(torch.einsum("bcshp,bcsn->bchpn", dx[..., a:b, :],
+                                 Bg[..., g, :]))               # (B,nc,h,P,N)
+    y, inc = (ys[0], incs[0]) if len(segs) == 1 else \
+        (torch.cat(ys, dim=2), torch.cat(incs, dim=2))
     chunk_decay = torch.exp(l[:, :, -1])[..., None, None]  # (B,nc,h,1,1)
     hs = torch.zeros((B, h, P, N), dtype=f32, device=xs.device)
     starts = []
@@ -145,7 +179,9 @@ def _ssd_scan(xs, Bg, Cg, dtg, lg):
         hs = chunk_decay[:, c] * hs + inc[:, c]
     h0 = torch.stack(starts, dim=1)                        # (B,nc,h,P,N)
     # inter-chunk: the carried state seen from each position
-    y = y + torch.einsum("bctn,bchpn->bchtp", Cg, h0) \
+    seen = [torch.einsum("bctn,bchpn->bchtp", Cg[..., g, :], h0[:, :, a:b])
+            for g, a, b in segs]
+    y = y + (seen[0] if len(segs) == 1 else torch.cat(seen, dim=2)) \
         * torch.exp(lh)[..., None]
     return y, hs
 
@@ -153,17 +189,18 @@ def _ssd_scan(xs, Bg, Cg, dtg, lg):
 def _block_local(cfg: ModelConfig, proj, conv_w, conv_b, dt_bias, A_log, D,
                  h0: int, h: int, return_state: bool):
     """The prefill mixer of heads [h0, h0 + h) on plain tensors, from the
-    whole columns of the fused projection (B, S, 2 d_in + 2N + H): the
-    gated output ``y * silu(z)`` (B, S, h P) in proj's dtype, the SSD state
+    whole columns of the fused projection (B, S, 2 d_in + 2GN + H): the
+    gated output ``y * silu(z)`` (B, S, h P) (:func:`_gate`), the SSD state
     (B, h, P, N) and, with ``return_state``, the last K-1 conv inputs of
-    every channel (B, K-1, d_in + 2N) in f32."""
+    every channel (B, K-1, d_in + 2GN) in f32."""
     B, S, _ = proj.shape
     d_in, _, P, N = ssm_dims(cfg)
+    G = cfg.mamba_ngroups
     f32 = torch.float32
     z, xc, Bc, Cc, dt = _heads(cfg, proj, h0, h)
     tail = None
     if return_state:
-        conv_all = proj[..., d_in:2 * d_in + 2 * N]        # x | B | C
+        conv_all = proj[..., d_in:2 * d_in + 2 * G * N]    # x | B | C
         Kc = cfg.ssm_conv - 1
         if S >= Kc:
             tail = conv_all[:, S - Kc:].to(f32)
@@ -172,7 +209,8 @@ def _block_local(cfg: ModelConfig, proj, conv_w, conv_b, dt_bias, A_log, D,
     conv_in = torch.cat([xc, Bc, Cc], dim=-1)
     conv_out, _ = _conv1d(_channels(cfg, conv_w, h0, h),
                           _channels(cfg, conv_b, h0, h), conv_in)
-    xc, Bc, Cc = torch.split(F.silu(conv_out), [h * P, N, N], dim=-1)
+    xc, Bc, Cc = torch.split(F.silu(conv_out), [h * P, G * N, G * N],
+                             dim=-1)
 
     dt = F.softplus(dt.to(f32) + dt_bias[h0:h0 + h])             # (B,S,h)
     loga = -torch.exp(A_log[h0:h0 + h]) * dt                      # <= 0
@@ -189,39 +227,69 @@ def _block_local(cfg: ModelConfig, proj, conv_w, conv_b, dt_bias, A_log, D,
         return a.reshape(B, nc, Q, *rest)
 
     xs = chunks(xc, h, P)                                  # x's dtype
-    y, hs = _ssd_scan(xs, chunks(Bc.to(f32), N), chunks(Cc.to(f32), N),
-                      chunks(dt, h), chunks(loga, h))
+    y, hs = _ssd_scan(xs, chunks(Bc.to(f32), G, N),
+                      chunks(Cc.to(f32), G, N), chunks(dt, h),
+                      chunks(loga, h), _segments(cfg, h0, h))
     y = y.permute(0, 1, 3, 2, 4).reshape(B, Sp, h, P)[:, :S]
     y = y + D[h0:h0 + h][:, None] * xs.reshape(B, Sp, h, P)[:, :S]
-    y = y.reshape(B, S, h * P).to(proj.dtype)
-    return y * F.silu(z), hs, tail
+    return _gate(cfg, y.reshape(B, S, h * P), z), hs, tail
+
+
+def _gate(cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``y * silu(z)`` of the f32 scan output ``y``: in z's dtype (G = 1,
+    the reference's form), or in f32 (G > 1, Zamba2's ``RMSNormGated``,
+    which gates and takes its statistics in f32)."""
+    if cfg.mamba_ngroups == 1:
+        return y.to(z.dtype) * F.silu(z)
+    return y * F.silu(z.float())
+
+
+def _gated_norm(cfg: ModelConfig, gain: torch.Tensor, y: torch.Tensor,
+                dtype) -> torch.Tensor:
+    """The RMSNorm before ``out_proj`` of the gated output ``y``, in
+    ``dtype``: over all of d_inner (G = 1), or over each group's d_inner / G
+    channels (G > 1), statistics in f32 and the gain entering as
+    ``1 + gain``, as :func:`rms_norm`."""
+    G = cfg.mamba_ngroups
+    if G == 1:
+        return rms_norm(y, gain, cfg.norm_eps)
+    yg = y.float().reshape(*y.shape[:-1], G, -1)
+    var = torch.mean(yg * yg, dim=-1, keepdim=True)
+    n = (yg * torch.rsqrt(var + cfg.norm_eps)).reshape(y.shape).to(dtype)
+    return n * (1.0 + gain.to(dtype))
 
 
 def _step_local(cfg: ModelConfig, proj, conv, ssm, conv_w, conv_b, dt_bias,
                 A_log, D, h0: int, h: int):
     """One decode token of heads [h0, h0 + h) on plain tensors: ``proj``
-    (B, 1, ...) whole columns, ``conv`` (B, K-1, d_in + 2N) every channel,
+    (B, 1, ...) whole columns, ``conv`` (B, K-1, d_in + 2GN) every channel,
     ``ssm`` (B, h, P, N) the heads' state. Returns the gated output (B, 1,
     h P), the new conv window (every channel, f32) and the new state."""
     B = proj.shape[0]
     d_in, _, P, N = ssm_dims(cfg)
+    GN = cfg.mamba_ngroups * N
     f32 = torch.float32
     z, _, _, _, dt = _heads(cfg, proj, h0, h)
     conv_out, conv_state = _conv1d(conv_w, conv_b,
-                                   proj[..., d_in:2 * d_in + 2 * N], conv)
-    xc, Bc, Cc = torch.split(F.silu(conv_out), [d_in, N, N], dim=-1)
+                                   proj[..., d_in:2 * d_in + 2 * GN], conv)
+    xc, Bc, Cc = torch.split(F.silu(conv_out), [d_in, GN, GN], dim=-1)
     xc = xc[..., h0 * P:(h0 + h) * P]
 
     dt = F.softplus(dt[:, 0].to(f32) + dt_bias[h0:h0 + h])        # (B,h)
     a = torch.exp(-torch.exp(A_log[h0:h0 + h]) * dt)              # (B,h)
     xh = xc[:, 0].reshape(B, h, P).to(f32)
-    Bv, Cv = Bc[:, 0].to(f32), Cc[:, 0].to(f32)                   # (B,N)
-    hs = ssm * a[:, :, None, None] \
-        + (xh * dt[:, :, None])[..., None] * Bv[:, None, None, :]
-    y = (hs @ Cv[:, None, :, None])[..., 0]                       # (B,h,P)
+    Bv, Cv = Bc[:, 0].to(f32), Cc[:, 0].to(f32)                   # (B,GN)
+    if GN == N:                          # one group: every head reads it
+        Bh, Ch = Bv[:, None, None, :], Cv[:, None, :, None]
+    else:                                # each head its group's B and C
+        Bh, Ch = (torch.cat([t.view(B, -1, N)[:, g:g + 1].expand(B, b - a, N)
+                             for g, a, b in _segments(cfg, h0, h)], dim=1)
+                  for t in (Bv, Cv))
+        Bh, Ch = Bh[:, :, None, :], Ch[..., None]
+    hs = ssm * a[:, :, None, None] + (xh * dt[:, :, None])[..., None] * Bh
+    y = (hs @ Ch)[..., 0]                                         # (B,h,P)
     y = y + D[h0:h0 + h][:, None] * xh
-    y = y.reshape(B, 1, h * P).to(proj.dtype)
-    return y * F.silu(z), conv_state.to(f32), hs
+    return _gate(cfg, y.reshape(B, 1, h * P), z), conv_state.to(f32), hs
 
 
 def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor,
@@ -246,7 +314,7 @@ def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor,
     else:
         y, hs, tail = _block_local(cfg, *args, 0, ssm_dims(cfg)[1],
                                    return_state)
-    out = rms_norm(y, p["norm"], cfg.norm_eps) @ p["out_proj"]
+    out = _gated_norm(cfg, p["norm"], y, proj.dtype) @ p["out_proj"]
     if return_state:
         return out, {"conv": tail, "ssm": hs}
     return out
@@ -256,7 +324,8 @@ def mamba2_init_state(cfg: ModelConfig, batch: int, *,
                       device=None) -> dict[str, torch.Tensor]:
     d_in, H, P, N = ssm_dims(cfg)
     f32 = torch.float32
-    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, d_in + 2 * N),
+    conv_ch = d_in + 2 * cfg.mamba_ngroups * N
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_ch),
                                 dtype=f32, device=device),
             "ssm": torch.zeros((batch, H, P, N), dtype=f32, device=device)}
 
@@ -274,7 +343,7 @@ def mamba2_step(cfg: ModelConfig, p, state: dict,
         y, conv, hs = _on_heads(cfg, _step_local, args, (), step=True)
     else:
         y, conv, hs = _step_local(cfg, *args, 0, ssm_dims(cfg)[1])
-    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    y = _gated_norm(cfg, p["norm"], y, proj.dtype)
     return y @ p["out_proj"], {"conv": conv, "ssm": hs}
 
 
