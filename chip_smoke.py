@@ -6,6 +6,7 @@
     python3 chip_smoke.py --probe-consistency      # zamba2 decode vs prefill
     python3 chip_smoke.py --train-phase ARCH B S   # one family's train phase
     python3 chip_smoke.py --serve-phase            # the serve phases only
+    python3 chip_smoke.py --time-ssd               # the SSD kernels only
 
 Run from the root of a checkout, on a machine with one CUDA card. It imports
 nothing of JAX and nothing of the reference package ``repro``; it builds the
@@ -23,7 +24,10 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    calls (``scaled_dot_product_attention``, a yardstick only) on the device:
    each timed loop is captured in a CUDA graph and replayed between two
    events, so the host's enqueue work is not in the time; the host enqueue
-   time per wrapper call is printed on its own line;
+   time per wrapper call is printed on its own line; the chunked SSD's
+   three kernels against ``models.ssm._ssd_plain`` at a zamba2-7b Mamba2
+   layer's shapes (SSD_LAYER, bf16 x, B and C; SSD_CHECKED lengths, within
+   SSD_TOL of each output's largest magnitude), timed at 3,072 tokens;
 4. serves granite-3-2b at full published width (40 layers, bf16, random
    weights from a seed) with two ServingEngines on one tiered LocStore behind
    the Router: 12 sessions, 32 pooled decode steps, a park + warm + resume
@@ -47,7 +51,8 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
 7. serves the recurrent families at published width and full depth, the
    same way: zamba2-7b (81 Mamba2 layers, the one shared attention block
    applied at 13 points: 13 flash launches per prefill, 13 decode launches
-   per step, at head dim 112) and rwkv6-1.6b (no attention: no kernel
+   per step, at head dim 112; the SSD's 3 kernels per Mamba2 layer, 243
+   per prefill) and rwkv6-1.6b (no attention: no kernel
    launch; a session's state is the same 12,976,132 bytes at any length);
 8. drives a short seeded trace through the port's TraceDriver over two
    granite-3-2b engines (real prefills, modeled service times) and prints
@@ -121,9 +126,10 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    one AdamW step of 2 x 2048 at depth 12) and rwkv6-1.6b at published
    width and depth (an 8 x 256 prefill, 8 decode steps, one step of
    64 x 64), each through ``shard_model`` and unmeshed, bit for bit, the
-   SSD and WKV scans on each rank's heads, K1 / K2 launches equal and as
-   designed (zamba2 13 a prefill, 13 K2 a decode step, 4 K1 a train step;
-   rwkv none), the host walls of a decode step and of the train step both
+   SSD and WKV scans on each rank's heads, K1 / K2 / SSD launches equal
+   and as designed (zamba2 13 a prefill, 13 K2 a decode step, 4 K1 a
+   train step, 243 SSD kernels a prefill and none a train step; rwkv
+   none), the host walls of a decode step and of the train step both
    ways;
    and the host cost of the ``hint`` and
    ``tp_divides`` sites in one granite-3-2b decode step (``hint_sites``);
@@ -152,7 +158,9 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
 With ``--sweep-decode-chunks`` it only times the decode kernel at the path's
 shapes at each chunk size of CHUNKS_TRIED (how ``chunk_size`` was chosen);
 with ``--probe-consistency`` it only compares zamba2-7b's decode step with
-its prefill layer by layer (``probe_consistency``); with ``--train-phase``
+its prefill layer by layer (``probe_consistency``); with ``--time-ssd`` it
+only checks and times the chunked SSD's kernels against their plain version
+at a zamba2-7b layer's prefill shapes (``time_ssd``); with ``--train-phase``
 it only runs one family's train phase of TRAIN_PHASES at B x S tokens a
 step (``--train-phase rwkv6-1.6b 4 1024``). None prints a result line.
 
@@ -355,7 +363,15 @@ FLASH_LONG = ("prefill_32k granite-3-2b",
               (2, 32768, 32768, 32, 8, 64, True, 0, 0))
 FLASH_LONG_ROWS = 1024
 DECODE_LONG = ("decode_32k granite-3-2b", (8, 32768, 32, 8, 64, 0))
-DESIGN = {"flash_attention": "wgmma+tma", "decode_attention": "chunked-v16"}
+DESIGN = {"flash_attention": "wgmma+tma", "decode_attention": "chunked-v16",
+          "ssd_scan": "f32-fma-3-pass"}
+# the chunked SSD of one zamba2-7b Mamba2 layer's prefill: SSM heads, head
+# dim P, state N, B/C groups; checked at one masked chunk, a ragged end and
+# the cell's prompt length, timed at the last; the check's limit is
+# tests/test_torch_ssd_kernel.py's TOL, of each output's largest magnitude
+SSD_LAYER = (112, 64, 64, 2)
+SSD_CHECKED = (77, 3000, 3072)
+SSD_TOL = 1e-4
 CHUNKS_TRIED = (128, 192, 256, 320, 384, 512)   # --sweep-decode-chunks
 
 
@@ -393,7 +409,9 @@ def bound_ms(ops: float, nbytes: float, dtype: str) -> tuple[float, str]:
 
 def kernel_phase(torch, kern) -> dict:
     from repro_torch.launch.op_analysis import decode_work, flash_work
+    from repro_torch.models.ssm import _ssd_plain
     ref, flash, decode = kern["ref"], kern["flash"], kern["decode"]
+    ssd = kern["ssd"]
     F = torch.nn.functional
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -406,7 +424,8 @@ def kernel_phase(torch, kern) -> dict:
             return torch.full((B,), S, dtype=torch.int32, device="cuda")
         return path_lengths(torch, B, S, SEED)
 
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    worst = {"flash_attention": 0.0, "decode_attention": 0.0,
+             "ssd_scan": 0.0}
     failed = []
 
     def check(name, label, dt, out, want):
@@ -466,6 +485,24 @@ def kernel_phase(torch, kern) -> dict:
             torch.cuda.synchronize()
             check("decode_attention", label, dt, out,
                   ref.decode_attention_ref(q, kc, vc, lt))
+
+    def check_ssd(label, args, kw):
+        """The SSD kernels against ``_ssd_plain`` on the same tensors: y
+        and the final state within SSD_TOL of their largest magnitude."""
+        got = ssd(*args, **kw)
+        torch.cuda.synchronize()
+        err, rel = ssd_errors(torch, got, _ssd_plain(*args, **kw))
+        ok = rel <= SSD_TOL
+        print(f"  {'ssd_scan':16s} {label:40s} {'bf16 x':8s} "
+              f"max_abs_err={err:.3e} err/max|plain|={rel:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(f"ssd_scan {label}")
+        worst["ssd_scan"] = max(worst["ssd_scan"], err)
+        return err
+
+    for S in SSD_CHECKED:
+        check_ssd(f"zamba2-7b layer {SSD_LAYER} S {S}", *ssd_case(torch, S))
     need(not failed, f"{len(failed)} kernel checks failed: {failed}")
 
     print("[kernels] times at the serving path's shapes (bf16; CUDA graph of "
@@ -602,6 +639,26 @@ def kernel_phase(torch, kern) -> dict:
                           library_call=lib_call, bound_ms=b_ms, bound_by=b_by,
                           max_abs_err=err, host_us=h_us))
         rows.setdefault("decode_attention", dict(paths[-1]))
+    S = SSD_CHECKED[-1]
+    args, kw = ssd_case(torch, S)
+    ops, nbytes = ssd_work(S)
+    name = f"zamba2-7b layer prefill {S}"
+    err = check_ssd(f"timed {name}", args, kw)
+    need(not failed, f"kernel check failed: {failed}")
+    t_k = time_ms(torch, lambda: ssd(*args, **kw), 20)
+    t_p = time_ms(torch, lambda: _ssd_plain(*args, **kw), 2)
+    h_us = host_us(torch, lambda: ssd(*args, **kw), 20)
+    b_ms, b_by = bound_ms(ops, nbytes, "float32")
+    print(f"  ssd_scan         {name:18s} kernel_ms={t_k:.4f} "
+          f"plain_ms={t_p:.4f} bound_ms={b_ms:.5f} by {b_by} ({ops:.3e} f32 "
+          f"op, {nbytes:.3e} B); kernels at {ops / t_k / 1e9:.1f} TFLOP/s; "
+          f"host enqueue {h_us:.1f} us per wrapper call", flush=True)
+    paths.append(dict(kernel="ssd_scan", path=name, case=SSD_LAYER + (S,),
+                      ms=t_k, plain_ms=t_p, library_ms=None,
+                      library_call=None, bound_ms=b_ms, bound_by=b_by,
+                      max_abs_err=err, host_us=h_us))
+    rows["ssd_scan"] = dict(paths[-1])
+    del args
     paths += production_shapes(torch, kern, mk, check)
     need(not failed, f"kernel check failed: {failed}")
     for name in rows:
@@ -706,6 +763,103 @@ def production_shapes(torch, kern, mk, check) -> list[dict]:
                     max_abs_err=err, host_us=h_us))
     del q, kc, vc
     free_cuda(torch)
+    return out
+
+
+def ssd_case(torch, S: int) -> tuple[tuple, dict]:
+    """The SSD's inputs at S tokens of a SSD_LAYER, seeded by S, as the
+    prefill makes them (bf16 silu output, f32 softplus step, log-decay
+    -exp(A_log) dt), and the wrapper's keywords."""
+    h, P, N, G = SSD_LAYER
+    g = torch.Generator(device="cuda").manual_seed(S)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    xbc = torch.nn.functional.silu(randn(1, S, h * P + 2 * G * N)) \
+        .to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(randn(1, S, h) * 0.5 - 1.0)
+    args = (xbc, dt, -torch.exp(1.386 + 0.5 * randn(h)) * dt,
+            1.0 + 0.1 * randn(h))
+    return args, dict(h0=0, heads_per_group=h // G, head_dim=P, state=N)
+
+
+def ssd_work(S: int) -> tuple[float, float]:
+    """(f32 FLOPs, bytes) of a SSD_LAYER's SSD at S tokens: the chunk states
+    and the state's carry and reads (4 h P N a token), C B^T and the
+    decay-weighted sum over the causal pairs of each chunk; bytes of x, B, C
+    in bf16, dt and the log-decay, y and the final state in f32."""
+    h, P, N, G = SSD_LAYER
+    nc = -(-S // 128)
+    last = S - 128 * (nc - 1)
+    pairs = (nc - 1) * 128 * 129 // 2 + last * (last + 1) // 2
+    flops = 4.0 * h * P * N * S + 2.0 * (G * N + h * P) * pairs
+    nbytes = S * (h * P + 2 * G * N) * 2 + 2 * S * h * 4 \
+        + S * h * P * 4 + h * P * N * 4
+    return flops, nbytes
+
+
+def ssd_errors(torch, got, want) -> tuple[float, float]:
+    """(largest |kernels - plain| over y and the state, its largest share
+    of the output's largest magnitude)."""
+    err = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    rel = [e / float(b.abs().max()) for e, b in zip(err, want)]
+    return max(err), max(rel)
+
+
+def time_ssd(torch) -> None:
+    """The chunked SSD of one zamba2-7b Mamba2 layer's prefill (112 heads of
+    P 64, N 64, 2 groups, bf16 x, B and C) at the cell's prompt lengths:
+    the kernels (``kernels/ssd_scan.py``) against the plain version
+    (``models.ssm._ssd_plain``) on the same tensors, their device times
+    (``time_ms``), the bound (f32 FLOPs at PEAK_F32_FLOPS or bytes at
+    PEAK_BYTES), and the scratch each allocates above its outputs."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import ssm
+    for S in (1024, 3072, 3840):
+        args, kw = ssd_case(torch, S)
+        outs, scratch = [], []
+        for fn in (ssd_scan, ssm._ssd_plain):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            outs.append(fn(*args, **kw))
+            torch.cuda.synchronize()
+            scratch.append(torch.cuda.max_memory_allocated() - base
+                           - sum(t.nbytes for t in outs[-1]))
+        err = [float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(*outs)]
+        del outs
+        need(max(err) <= SSD_TOL, f"ssd kernels at S {S}: error {err}")
+        kernel = time_ms(torch, lambda: ssd_scan(*args, **kw), calls=20)
+        plain = time_ms(torch, lambda: ssm._ssd_plain(*args, **kw), calls=2)
+        flops, nbytes = ssd_work(S)
+        bound, kind = bound_ms(flops, nbytes, "float32")
+        print("[ssd] " + json.dumps(dict(
+            S=S, kernel_ms=round(kernel, 4), plain_ms=round(plain, 4),
+            bound_ms=round(bound, 4), bound=kind, gflop=round(flops / 1e9, 3),
+            mbytes=round(nbytes / 1e6, 1),
+            kernel_tflops=round(flops / kernel / 1e9, 2),
+            rel_err_y_state=[float(f"{e:.3g}") for e in err],
+            scratch_bytes_kernel_plain=scratch,
+            plain_device_ops=len(device_ops(torch, ssm._ssd_plain, args, kw)),
+            kernels_ms=device_ops(torch, ssd_scan, args, kw))), flush=True)
+
+
+def device_ops(torch, fn, args, kw) -> dict[str, float]:
+    """Device milliseconds of each kernel, copy and fill that one call of
+    ``fn`` puts on the device, by name, as ``torch.profiler`` traces them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = f"{len(out)}:{e.name[:40]}"
+            out[key] = round(e.device_time_total / 1e3, 4)
     return out
 
 
@@ -886,7 +1040,8 @@ def seeded_prompts(cfg, lens: list[int]) -> list[list[int]]:
 def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
                  max_batch: int, max_seq: int, prompts: list[list[int]],
                  steps: int, flash_per_prefill: int, decode_per_step: int,
-                 kv_bytes: int, park_at: int | None = None,
+                 kv_bytes: int, ssd_per_prefill: int = 0,
+                 park_at: int | None = None,
                  gates: bool = False,
                  consistency: tuple[int, int, int] | None = None,
                  consistency_dtype: str | None = None,
@@ -899,7 +1054,8 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
     warmed and resumed by a follow-up before step ``park_at`` (default
     halfway). Checks the kernels' launch counts against what the path
     implies (``flash_per_prefill`` per prefill, ``decode_per_step`` per
-    pooled step: 0 where the path has no such kernel), the resumed session
+    pooled step: 0 where the path has no such kernel; ``ssd_per_prefill``
+    SSD kernels per prefill, 0 but in the hybrid family), the resumed session
     against its control token for token, every session's tokens, and the
     slot bytes against ``kv_bytes``. Optional checks: ``live_follow_up``
     (a follow-up of the second session is a live hit, no prefill),
@@ -951,6 +1107,7 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
     flash, decode = kern["flash"], kern["decode"]
     flash.launches = 0
     decode.launches = 0
+    kern["ssd"].launches = 0
     # ------------------------------------------------------------ main path
     ttft, placed = [], []
     for p, e in zip(prompts, ex):
@@ -980,14 +1137,16 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
             n_tokens += len(e.step())
         torch.cuda.synchronize()
         step_wall.append(time.perf_counter() - t)
-    k1, k2 = flash.launches, decode.launches
+    k1, k2, k3 = flash.launches, decode.launches, kern["ssd"].launches
     # ------------------------------------------------------------ checks
     prefills = sum(e.prefills for e in engines)
     n_steps = sum(e.steps for e in engines)
     print(f"  launches: flash_attention {k1} ({flash_per_prefill} x "
           f"{prefills} prefills = {flash_per_prefill * prefills}), "
           f"decode_attention {k2} ({decode_per_step} x {n_steps} decode steps "
-          f"= {decode_per_step * n_steps})", flush=True)
+          f"= {decode_per_step * n_steps}), ssd_scan {k3} ({ssd_per_prefill} "
+          f"x {prefills} prefills = {ssd_per_prefill * prefills})",
+          flush=True)
     need((k1 > 0 or flash_per_prefill == 0)
          and (k2 > 0 or decode_per_step == 0),
          f"{label}: a kernel of the path was never launched")
@@ -995,6 +1154,8 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
          f"{label}: flash launches {k1} != {flash_per_prefill} x {prefills}")
     need(k2 == decode_per_step * n_steps,
          f"{label}: decode launches {k2} != {decode_per_step} x {n_steps}")
+    need(k3 == ssd_per_prefill * prefills and (k3 > 0 or ssd_per_prefill == 0),
+         f"{label}: ssd_scan launches {k3} != {ssd_per_prefill} x {prefills}")
     need(d1 is not None and d1.kind == "hit_parked" and d1.resumed
          and not d1.prefilled, f"{label}: park/resume follow-up went {d1}")
     if live_follow_up:
@@ -1033,11 +1194,14 @@ def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
            "engines": [{"prefills": e.prefills, "steps": e.steps,
                         "parks": e.parks, "resumes": e.resumes}
                        for e in engines],
-           "launches": {"flash_attention": k1, "decode_attention": k2},
+           "launches": {"flash_attention": k1, "decode_attention": k2,
+                        "ssd_scan": k3},
            "launches_per_prefill": {"flash_attention": k1 / prefills,
-                                    "decode_attention": 0},
+                                    "decode_attention": 0,
+                                    "ssd_scan": k3 / prefills},
            "launches_per_step": {"flash_attention": 0,
-                                 "decode_attention": k2 / n_steps},
+                                 "decode_attention": k2 / n_steps,
+                                 "ssd_scan": 0},
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     print("  " + json.dumps(res), flush=True)
     prefetch.shutdown()
@@ -1165,6 +1329,7 @@ def serve_gemma(torch, kern) -> dict:
     flash, decode = kern["flash"], kern["decode"]
     flash.launches = 0
     decode.launches = 0
+    kern["ssd"].launches = 0
     t = time.perf_counter()
     sid = eng.submit(prompt)
     ttft = time.perf_counter() - t
@@ -1173,11 +1338,12 @@ def serve_gemma(torch, kern) -> dict:
         eng.step()
     t_dec = time.perf_counter() - t
     torch.cuda.synchronize()
-    k1, k2 = flash.launches, decode.launches
+    k1, k2, k3 = flash.launches, decode.launches, kern["ssd"].launches
     print(f"  launches: flash_attention {k1} (6 x {eng.prefills} prefill), "
           f"decode_attention {k2} (6 x {eng.steps} steps)", flush=True)
     need(k1 == cfg.n_layers * eng.prefills and k1 > 0, "gemma flash launches")
     need(k2 == cfg.n_layers * eng.steps and k2 > 0, "gemma decode launches")
+    need(k3 == 0, f"gemma ssd_scan launches {k3}")
     toks = eng.sessions[sid].tokens
     need(len(toks) == 17 and all(0 <= x < cfg.vocab for x in toks),
          f"gemma tokens {toks}")
@@ -1185,7 +1351,8 @@ def serve_gemma(torch, kern) -> dict:
            "decode_steps": eng.steps, "decode_seconds": t_dec,
            "decode_step_ms": 1e3 * t_dec / 16,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-           "launches": {"flash_attention": k1, "decode_attention": k2}}
+           "launches": {"flash_attention": k1, "decode_attention": k2,
+                        "ssd_scan": k3}}
     print("  " + json.dumps(res), flush=True)
     res["step_modes"] = step_modes(torch, [eng], f"{full.name} (6 layers)")
     res["consistency"] = check_consistency(torch, M, cfg, model, prompt[:1100],
@@ -1284,6 +1451,9 @@ def serve_zamba2(torch, kern) -> dict:
         torch, kern, cfg, label=cfg.name, n_engines=2, max_batch=4,
         max_seq=2048, prompts=seeded_prompts(cfg, lens), steps=16,
         flash_per_prefill=G, decode_per_step=G,
+        # three SSD kernels per Mamba2 layer (ssd_chunk_state,
+        # ssd_state_pass, ssd_chunk_out)
+        ssd_per_prefill=3 * cfg.n_layers,
         # the 13 application points' K/V, every layer's f32 SSM state and
         # conv window, the 4-byte position
         kv_bytes=2 * G * 2048 * cfg.n_kv_heads * cfg.hd * 2
@@ -1360,12 +1530,13 @@ def trace_granite(torch, kern) -> dict:
     flash, decode = kern["flash"], kern["decode"]
     flash.launches = 0
     decode.launches = 0
+    kern["ssd"].launches = 0
     t0 = time.perf_counter()
     rep = TraceDriver(router, trace, cost=cost, warm=True,
                       max_history=max_seq).run()
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    k1, k2 = flash.launches, decode.launches
+    k1, k2, k3 = flash.launches, decode.launches, kern["ssd"].launches
     s = rep.summary()
     prefills = sum(e.prefills for e in engines)
     print(f"  report: " + json.dumps(s), flush=True)
@@ -1377,6 +1548,7 @@ def trace_granite(torch, kern) -> dict:
           flush=True)
     need(k1 > 0 and k1 == cfg.n_layers * prefills,
          f"trace: flash launches {k1} != 40 x {prefills}")
+    need(k3 == 0, f"trace: ssd_scan launches {k3}")
     need(prefills == s["new_sessions"] + s["lost_reprefills"]
          + s["migrations"], "trace: prefills do not match the report")
     need(s["requests"] == len(trace) and s["engine_full_errors"] == 0,
@@ -1388,7 +1560,8 @@ def trace_granite(torch, kern) -> dict:
           f"CostModel at the mean prompt ({mean_prompt:.0f} tokens) "
           f"{cost.prefill_seconds(int(mean_prompt)):.4f}", flush=True)
     res = {"report": s, "prefills": prefills,
-           "launches": {"flash_attention": k1, "decode_attention": k2},
+           "launches": {"flash_attention": k1, "decode_attention": k2,
+                        "ssd_scan": k3},
            "prefill_seconds_measured": measured,
            "prefill_seconds_model": cost.prefill_seconds(int(mean_prompt)),
            "driver_wall_s": wall,
@@ -1823,6 +1996,7 @@ def train_granite(torch, kern) -> dict:
     torch.cuda.reset_peak_memory_stats()
     flash.launches = 0
     decode.launches = 0
+    kern["ssd"].launches = 0
     bwd.calls = 0
     t0 = time.perf_counter()
     with _CountPlain(ref) as plain:
@@ -1831,6 +2005,7 @@ def train_granite(torch, kern) -> dict:
                   device="cuda", on_step=on_step)
     t_train = time.perf_counter() - t0
     k1, k2, n_bwd = flash.launches, decode.launches, bwd.calls
+    k3 = kern["ssd"].launches
     peak = torch.cuda.max_memory_allocated()
     walls = [b - a for a, b in zip(marks, marks[1:])]
     print(f"  losses {[round(x, 6) for x in r.losses]}; (grad norm, lr) "
@@ -1847,6 +2022,7 @@ def train_granite(torch, kern) -> dict:
     need(k1 > 0 and k1_steps == [per_step] * STEPS,
          f"train: flash launches per step {k1_steps} != {per_step}")
     need(k2 == 0, f"train: decode launches {k2}")
+    need(k3 == 0, f"train: ssd_scan launches {k3}")
     need(bwd_steps == [cfg.n_layers * MB] * STEPS,
          f"train: plain backwards per step {bwd_steps}")
     need(plain.calls == 0, f"train: {plain.calls} plain attention forwards")
@@ -1862,7 +2038,7 @@ def train_granite(torch, kern) -> dict:
            "tokens_per_s": tokens / step_s, "peak_memory_bytes": peak,
            "mfu": mfu, "params": n_params,
            "launches": {"flash_attention": k1_steps[-1],
-                        "decode_attention": 0},
+                        "decode_attention": 0, "ssd_scan": k3},
            "plain_backward_per_step": bwd_steps[-1]}
     del r
     free_cuda(torch)
@@ -2033,6 +2209,7 @@ def train_family(torch, kern, spec: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     flash.launches = 0
     decode.launches = 0
+    kern["ssd"].launches = 0
     bwd.calls = 0
     t0 = time.perf_counter()
     with _CountPlain(ref) as plain, gates_opened(torch, M):
@@ -2060,7 +2237,7 @@ def train_family(torch, kern, spec: dict) -> dict:
                 on_step(step, metrics)
             del model, params
     t_train = time.perf_counter() - t0
-    k2 = decode.launches
+    k2, k3 = decode.launches, kern["ssd"].launches
     peak = torch.cuda.max_memory_allocated()
     walls = [b - a for a, b in zip(marks, marks[1:])]
     print(f"  losses {[round(x, 6) for x in losses]}; metrics "
@@ -2068,9 +2245,10 @@ def train_family(torch, kern, spec: dict) -> dict:
           f"; {t_train:.2f}s; step walls {[round(w, 4) for w in walls]} s "
           f"(the last profiled); data waits {waits}", flush=True)
     print(f"  launches: flash_attention {k1_steps} per step (designed "
-          f"{k1_design}); decode_attention {k2}; plain attention backward "
-          f"{bwd_steps} per step (designed {bwd_design}); plain attention "
-          f"forwards {plain.calls}", flush=True)
+          f"{k1_design}); decode_attention {k2}; ssd_scan {k3} (a training "
+          f"step takes a gradient: the SSD runs plain); plain attention "
+          f"backward {bwd_steps} per step (designed {bwd_design}); plain "
+          f"attention forwards {plain.calls}", flush=True)
     need(len(losses) == steps and all(math.isfinite(x) for x in losses),
          f"train {cfg.name}: losses {losses}")
     need(k1_steps == [k1_design] * steps and (k1_design > 0 or apps == 0),
@@ -2080,6 +2258,7 @@ def train_family(torch, kern, spec: dict) -> dict:
          f"train {cfg.name}: plain backwards per step {bwd_steps} != "
          f"{bwd_design}")
     need(k2 == 0, f"train {cfg.name}: decode launches {k2}")
+    need(k3 == 0, f"train {cfg.name}: ssd_scan launches {k3}")
     need(plain.calls == 0, f"train {cfg.name}: {plain.calls} plain attention "
          f"forwards")
     step_s = walls[0]
@@ -2098,7 +2277,7 @@ def train_family(torch, kern, spec: dict) -> dict:
            "model_flops": flops, "mfu": mfu, "mfu_6n": six_n,
            "params": n_params,
            "launches": {"flash_attention": k1_steps[-1],
-                        "decode_attention": 0},
+                        "decode_attention": 0, "ssd_scan": k3},
            "plain_backward_per_step": bwd_steps[-1]}
     res["profile"] = train_profile(torch, prof, 1e3 * step_s)
     del prof
@@ -2153,10 +2332,12 @@ def workflow_quickstart(torch, kern) -> dict:
     _, first = run_quickstart(raw, dev, lambda node: dev)
     flash.launches = 0
     decode.launches = 0
+    kern["ssd"].launches = 0
     ex, res = run_quickstart(raw, dev, lambda node: dev)
     torch.cuda.synchronize()
     launches = {"flash_attention": flash.launches,
-                "decode_attention": decode.launches}
+                "decode_attention": decode.launches,
+                "ssd_scan": kern["ssd"].launches}
     need(first.outputs["out"] == res.outputs["out"],
          f"workflow quickstart: two card runs give {first.outputs['out']} "
          f"and {res.outputs['out']}")
@@ -2183,8 +2364,8 @@ def workflow_quickstart(torch, kern) -> dict:
          f"workflow quickstart: tasks that ran {sorted(recs)}")
     need(all(v == split_at for v in homes.values()),
          f"workflow quickstart: split ran at {split_at}, outputs at {homes}")
-    need(launches == {"flash_attention": 0, "decode_attention": 0},
-         f"workflow quickstart: attention kernels launched {launches}")
+    need(not any(launches.values()),
+         f"workflow quickstart: model kernels launched {launches}")
     return {"out": out, "cpu_out": want, "rel": rel,
             "wall_s": res.wall_seconds, "first_wall_s": first.wall_seconds,
             "cpu_wall_s": cpu.wall_seconds, "launches": launches}
@@ -2315,6 +2496,7 @@ def workflow_epoch(torch, kern) -> dict:
         record: dict = {}
         flash.launches = 0
         decode.launches = 0
+        kern["ssd"].launches = 0
         with _CountPlain(ref) as plain:
             t0 = time.perf_counter()
             ex, res = run_epoch_workflow(torch, cfg, oc, seed=SEED,
@@ -2325,7 +2507,8 @@ def workflow_epoch(torch, kern) -> dict:
         steps = [f"step_{s}" for s in range(n_steps)]
         out = {"losses": record["losses"], "wall_s": res.wall_seconds,
                "init_wall_s": wall, "k1": flash.launches,
-               "k2": decode.launches, "plain": plain.calls,
+               "k2": decode.launches, "k3": kern["ssd"].launches,
+               "plain": plain.calls,
                "k1_per_step": record["k1"],
                "parts_on_card": record["parts_on_card"],
                "step_s": [recs[t]["run"] for t in steps[1:]],
@@ -2413,7 +2596,8 @@ def workflow_epoch(torch, kern) -> dict:
             "bytes_prefetched": last["bytes_prefetched"],
             "device_hits": last["prefetch"]["device_hits"],
             "launches": {"flash_attention": last["k1_per_step"][-1],
-                         "decode_attention": last["k2"]}}
+                         "decode_attention": last["k2"],
+                         "ssd_scan": last["k3"]}}
 
 
 # ------------------------------------------------------------------- dist
@@ -2519,6 +2703,7 @@ def dist_deepseek(torch, kern, mesh) -> dict:
         torch.cuda.synchronize()
         flash.launches = 0
         decode.launches = 0
+        kern["ssd"].launches = 0
         t0 = time.perf_counter()
         with moe_paths() as calls, rules(meshed):
             loss, _ = M.loss_fn(cfg, model, batch)
@@ -2527,6 +2712,7 @@ def dist_deepseek(torch, kern, mesh) -> dict:
         wall = time.perf_counter() - t0
         k1, k2 = flash.launches, decode.launches
         out = {"loss": loss.item(), "k1": k1, "k2": k2,
+               "k3": kern["ssd"].launches,
                "calls": dict(calls), "wall_s": wall,
                "peak": torch.cuda.max_memory_allocated(),
                "fp": {n: fingerprint(torch, g, SEED + i)
@@ -2609,14 +2795,15 @@ def dist_deepseek(torch, kern, mesh) -> dict:
     return {"loss": [a["loss"], b["loss"], c["loss"]], "held": held,
             "sharded_bit_identical": True, "sharded_grad_wall_s": c["wall_s"],
             "tp_launches": {"flash_attention": c["k1"],
-                            "decode_attention": c["k2"]},
+                            "decode_attention": c["k2"],
+                            "ssd_scan": c["k3"]},
             "bit_identical": bits, "worst": worst,
             "k1_launches": [a["k1"], b["k1"]], "moe_paths": b["calls"],
             "grad_wall_s": [a["wall_s"], b["wall_s"]],
             "peak_memory_bytes": max(a["peak"], b["peak"]),
             "leaves": len(names), "whole_leaves": len(whole),
             "launches": {"flash_attention": b["k1"],
-                         "decode_attention": b["k2"]}}
+                         "decode_attention": b["k2"], "ssd_scan": b["k3"]}}
 
 
 def run_sharded(torch, cfg, model, batch, mesh, kern, whole) -> dict:
@@ -2635,6 +2822,7 @@ def run_sharded(torch, cfg, model, batch, mesh, kern, whole) -> dict:
     torch.cuda.synchronize()
     flash.launches = 0
     decode.launches = 0
+    kern["ssd"].launches = 0
     t0 = time.perf_counter()
     with moe_paths() as calls, M.sharded_pass(model):
         loss, _ = M.loss_fn(cfg, model, placed)
@@ -2643,7 +2831,8 @@ def run_sharded(torch, cfg, model, batch, mesh, kern, whole) -> dict:
                  for g, p in zip(grads, params)]
     torch.cuda.synchronize()
     out = {"loss": loss.full_tensor().item(), "k1": flash.launches,
-           "k2": decode.launches, "calls": dict(calls),
+           "k2": decode.launches, "k3": kern["ssd"].launches,
+           "calls": dict(calls),
            "wall_s": time.perf_counter() - t0,
            "peak": torch.cuda.max_memory_allocated(),
            "fp": {n: fingerprint(torch, g, SEED + i)
@@ -2715,11 +2904,12 @@ def dist_granite(torch, kern, mesh) -> dict:
         opt = init_opt_state(oc, dict(model.named_parameters()))
         step = make_train_step(cfg, oc, microbatches=mb,
                                grad_specs=specs if meshed else None)
-        losses, k1, k2, walls = [], [], [], []
+        losses, k1, k2, k3, walls = [], [], [], [], []
         for b in batches:
             torch.cuda.synchronize()
             flash.launches = 0
             decode.launches = 0
+            kern["ssd"].launches = 0
             t0 = time.perf_counter()
             with (sharding_rules(mesh) if meshed
                   else contextlib.nullcontext()):
@@ -2728,8 +2918,9 @@ def dist_granite(torch, kern, mesh) -> dict:
             walls.append(time.perf_counter() - t0)
             k1.append(flash.launches)
             k2.append(decode.launches)
+            k3.append(kern["ssd"].launches)
         return {"model": model, "opt": opt, "losses": losses, "k1": k1,
-                "k2": k2, "walls": walls}
+                "k2": k2, "k3": k3, "walls": walls}
 
     a = run(False)
     b = run(True)
@@ -2843,7 +3034,8 @@ def dist_granite(torch, kern, mesh) -> dict:
             "bf16_bytes": bf16_bytes, "compression_ratio": ratios,
             "ckpt_bytes": size, "save_s": t_save, "restore_s": t_restore,
             "launches": {"flash_attention": b["k1"][-1],
-                         "decode_attention": b["k2"][-1]}}
+                         "decode_attention": b["k2"][-1],
+                         "ssd_scan": b["k3"][-1]}}
 
 
 # the sharded step's check: granite at published width, depth cut to 4, two
@@ -2877,8 +3069,8 @@ def dist_tp(torch, kern, mesh) -> dict:
         spec["decode_steps"]
     oc = OptConfig(warmup_steps=10, total_steps=steps)
     flash, decode = kern["flash"], kern["decode"]
-    want = {"train": (2 * cfg.n_layers * mb, 0), "prefill": (cfg.n_layers, 0),
-            "decode": (0, cfg.n_layers)}
+    want = {"train": (2 * cfg.n_layers * mb, 0, 0),
+            "prefill": (cfg.n_layers, 0, 0), "decode": (0, cfg.n_layers, 0)}
     print(f"[dist] tp: {cfg.name} at published width, depth cut to "
           f"{cfg.n_layers}: {steps} AdamW steps of {B} x {S} in {mb} "
           f"microbatches, a prefill of {Bp} x {Sp} and {n_dec} decode steps, "
@@ -2901,11 +3093,12 @@ def dist_tp(torch, kern, mesh) -> dict:
         torch.cuda.synchronize()
         flash.launches = 0
         decode.launches = 0
+        kern["ssd"].launches = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, (flash.launches, decode.launches), \
-            time.perf_counter() - t0
+        return out, (flash.launches, decode.launches,
+                     kern["ssd"].launches), time.perf_counter() - t0
 
     def run(sharded: bool) -> dict:
         model = M.make_trainable(cfg, M.init_params(cfg, SEED, device="cuda"))
@@ -2981,7 +3174,8 @@ def dist_tp(torch, kern, mesh) -> dict:
             "walls_s": b["walls"], "unmeshed_walls_s": a["walls"],
             "decode_host_ms": host,
             "launches": {"flash_attention": b["launches"]["prefill"][0],
-                         "decode_attention": b["launches"]["decode0"][1]}}
+                         "decode_attention": b["launches"]["decode0"][1],
+                         "ssd_scan": b["launches"]["prefill"][2]}}
 
 
 # the recurrent families' sharded step on the 1x1 mesh: zamba2-7b at
@@ -3003,10 +3197,11 @@ def dist_tp_recurrent(torch, kern, mesh) -> dict:
     through K1 / K2 on each rank's heads) on the 1x1 NCCL mesh against the
     unmeshed run of the same seeds, bit for bit: a prefill's and every
     decode step's logits, then one AdamW step's loss, params and moments
-    (compared on the card). K1 / K2 launches equal both ways and as
+    (compared on the card). K1 / K2 / SSD launches equal both ways and as
     designed (zamba2: one K1 per shared-block application in a prefill and
-    two in a train step, one K2 per application in a decode step; rwkv:
-    none); the host walls of a decode step and of the train step, sharded
+    two in a train step, one K2 per application in a decode step, three SSD
+    kernels per Mamba2 layer in a prefill and none in a train step, which
+    takes a gradient; rwkv: none); the host walls of a decode step and of the train step, sharded
     against unmeshed."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticCorpus
@@ -3025,11 +3220,12 @@ def dist_tp_recurrent(torch, kern, mesh) -> dict:
         torch.cuda.synchronize()
         flash.launches = 0
         decode.launches = 0
+        kern["ssd"].launches = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, (flash.launches, decode.launches), \
-            time.perf_counter() - t0
+        return out, (flash.launches, decode.launches,
+                     kern["ssd"].launches), time.perf_counter() - t0
 
     res = {}
     for spec in DIST_TP_RECURRENT:
@@ -3041,8 +3237,9 @@ def dist_tp_recurrent(torch, kern, mesh) -> dict:
         tcfg = cfg if spec["train_layers"] is None else dataclasses.replace(
             cfg, n_layers=spec["train_layers"])
         t_apps = tcfg.n_layers // tcfg.attn_every if apps else 0
-        want = {"prefill": (apps, 0), "decode": (0, apps),
-                "train": (2 * t_apps, 0)}
+        ssd = 3 * cfg.n_layers if cfg.family == "hybrid" else 0
+        want = {"prefill": (apps, 0, ssd), "decode": (0, apps, 0),
+                "train": (2 * t_apps, 0, 0)}
         print(f"[dist] tp {cfg.name}: published width and depth "
               f"({cfg.n_layers} layers), a prefill of {Bp} x {Sp} and "
               f"{n_dec} decode steps; one AdamW step of {spec['B']} x "
@@ -3115,8 +3312,8 @@ def dist_tp_recurrent(torch, kern, mesh) -> dict:
               f"bit-identical on {len(serve[False]) - len(bad_logits)}/"
               f"{len(serve[False])}; train loss {la!r} vs {lb!r}, grad_norm "
               f"{ga!r} vs {gb!r}; params and moments bit-identical on "
-              f"{n_leaves - len(bad)}/{n_leaves} leaves; K1 / K2 launches "
-              f"a prefill {launches[True]['prefill']}, a decode step "
+              f"{n_leaves - len(bad)}/{n_leaves} leaves; K1 / K2 / SSD "
+              f"launches a prefill {launches[True]['prefill']}, a decode step "
               f"{launches[True]['decode0']}, a train step "
               f"{launches[True]['train']}; a decode step's host wall (steps "
               f"2..{n_dec}, synchronised) {host['decode_plain_ms']:.3f} ms "
@@ -3141,7 +3338,8 @@ def dist_tp_recurrent(torch, kern, mesh) -> dict:
                          "launches": {
                              "flash_attention": launches[True]["prefill"][0],
                              "decode_attention":
-                                 launches[True]["decode0"][1]}}
+                                 launches[True]["decode0"][1],
+                             "ssd_scan": launches[True]["prefill"][2]}}
     return res
 
 
@@ -3334,6 +3532,7 @@ def examples_phase(torch, kern) -> dict:
               f"on cuda)", flush=True)
         flash.launches = 0
         decode.launches = 0
+        kern["ssd"].launches = 0
         t0 = time.perf_counter()
         try:
             r = mod.main([])
@@ -3342,7 +3541,8 @@ def examples_phase(torch, kern) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = {"flash_attention": flash.launches,
-                    "decode_attention": decode.launches}
+                    "decode_attention": decode.launches,
+                    "ssd_scan": kern["ssd"].launches}
         print(f"[examples] {name} done in {dt:.1f}s; launches {launches}",
               flush=True)
         res[name] = {"seconds": dt, "launches": launches}
@@ -3367,12 +3567,14 @@ def ptxas_summary(lines: list[str]) -> list[str]:
     out, name = [], None
     for ln in lines:
         m = re.search(r"(flash_tc_kernel|flash_kernel|decode_chunk_kernel|"
-                      r"decode_merge_kernel)I((?:Li\d+E|f|13__nv_bfloat16)+)E",
+                      r"decode_merge_kernel|ssd_chunk_state|ssd_chunk_out|"
+                      r"ssd_state_pass)(?:I((?:Li\d+E|f|13__nv_bfloat16)+)E)?",
                       ln)
         if m:
-            parts = re.findall(r"Li(\d+)E|(f|13__nv_bfloat16)", m.group(2))
-            name = f"{m.group(1)}<" + ",".join(
-                a or args[t] for a, t in parts) + ">"
+            parts = re.findall(r"Li(\d+)E|(f|13__nv_bfloat16)",
+                               m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(a or args[t] for a, t in parts)}>"
+                                 if parts else "")
         elif "warning" in ln:
             out.append(ln)
         elif name and ("Used" in ln or "spill" in ln):
@@ -3462,12 +3664,13 @@ def main(argv: list[str]) -> int:
     sweep = argv == ["--sweep-decode-chunks"]
     probe = argv == ["--probe-consistency"]
     serve_only = argv == ["--serve-phase"]
+    ssd_only = argv == ["--time-ssd"]
     phase = None
     if argv[:1] == ["--train-phase"] and len(argv) == 4 \
             and argv[2].isdigit() and argv[3].isdigit():
         phase = next((dict(p, B=int(argv[2]), S=int(argv[3]))
                       for p in TRAIN_PHASES if p["arch"] == argv[1]), None)
-    if argv and not (sweep or probe or phase or serve_only):
+    if argv and not (sweep or probe or phase or serve_only or ssd_only):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     import torch
@@ -3488,6 +3691,7 @@ def main(argv: list[str]) -> int:
     from repro_torch.kernels.decode_attention import (chunk_size,
                                                       decode_attention)
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
     need("jax" not in sys.modules and "repro" not in sys.modules,
          "the port pulled in jax or the reference package")
 
@@ -3517,9 +3721,12 @@ def main(argv: list[str]) -> int:
     need(n_gmma > 0, "the bf16 flash kernel has no wgmma in its SASS")
 
     kern = {"ref": ref, "flash": flash_attention, "decode": decode_attention,
-            "chunk_size": chunk_size}
+            "ssd": ssd_scan, "chunk_size": chunk_size}
     if sweep:
         sweep_decode_chunks(torch, ref)
+        return 0
+    if ssd_only:
+        time_ssd(torch)
         return 0
     if probe:
         probe_consistency(torch)
@@ -3589,16 +3796,20 @@ def main(argv: list[str]) -> int:
     free_cuda(torch)
     print(f"[dist] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
 
+    # the SSD's kernels replace no TPU kernel: the reference's SSD is plain
+    # jnp; its launches are the zamba2-7b serve phase's
     src_of = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:127"),
               "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                   "src/repro/kernels/decode_attention.py:101")}
+                                   "src/repro/kernels/decode_attention.py:101"),
+              "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu", "none")}
     kernels = []
     for name, (source, replaces) in src_of.items():
         r = rows[name]
+        served = "zamba2-7b" if name == "ssd_scan" else "granite-3-2b"
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": granite["launches"][name],
+                        "launches": by_path[served][name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -3606,7 +3817,8 @@ def main(argv: list[str]) -> int:
                         "library_call": r["library_call"],
                         "design": DESIGN[name], "host_us": r["host_us"],
                         "launches_by_path": {k: v[name]
-                                             for k, v in by_path.items()}})
+                                             for k, v in by_path.items()
+                                             if name in v}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -111,6 +111,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_decode_attention.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                            ci, ci, ci, ci, cf, ci, ci, vp]
     lib.repro_decode_attention.restype = ci
+    lib.repro_ssd_scan.argtypes = [vp] * 9 + [ci] * 9 + [vp]
+    lib.repro_ssd_scan.restype = ci
     lib.repro_flash_attention_smem.argtypes = [ci, ci]
     lib.repro_flash_attention_smem.restype = ctypes.c_longlong
 

@@ -789,13 +789,14 @@ class HybridLM(_LM):
         if st is None:
             return _res(h + ssm_mod.mamba2_block(self.cfg, p["mamba"], x))
         with obs.span("mamba.prefill") as sp:
-            if sp.on:
-                S = x.shape[1]
-                sp.set(tokens=S, chunks=ssm_mod.n_chunks(S))
             y, new = ssm_mod.mamba2_block(self.cfg, p["mamba"], x,
                                           return_state=True)
             write_state(st["conv"], new["conv"])
             write_state(st["ssm"], new["ssm"])
+            if sp.on:                  # fused_tokens: the SSD in the kernels
+                S = x.shape[1]
+                sp.set(tokens=S, chunks=ssm_mod.n_chunks(S),
+                       fused_tokens=S if new["fused"] else 0)
         return _res(h + y)
 
     def hidden(self, tokens: torch.Tensor, *,

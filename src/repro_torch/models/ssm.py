@@ -19,6 +19,13 @@ kernel here in the reference: these are plain torch ops, products in
 ``einsum`` takes more than two operands, so the contraction order does not
 depend on whether ``opt_einsum`` is installed.
 
+On the card a prefill's SSD runs in hand-written CUDA kernels instead
+(``kernels/ssd_scan.py``), which keep the (chunk, head, Q, Q) decay and
+weight tensors out of device memory: wherever the tensors lie on a CUDA
+device and no gradient is asked of them (:func:`_fused`). The plain version
+(:func:`_ssd_plain` around :func:`_ssd_scan`) runs on the CPU, on meta
+tensors and under autograd, and is what the kernels are tested against.
+
 With ``mamba_ngroups`` G > 1 the fused projection carries G groups of B
 and C, group g read by heads [g H/G, (g+1) H/G), and the gated RMSNorm
 before ``out_proj`` normalises each group's d_inner/G channels on its own
@@ -35,6 +42,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding as shd
+from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.models.layers import (NEG_INF, init_linear, rms_norm,
                                        uniform_scale_init)
 
@@ -91,7 +99,11 @@ def _segments(cfg: ModelConfig, h0: int, h: int) -> list[tuple[int, int,
                                                                int]]:
     """(group, first, end) of heads [h0, h0 + h) by B/C group, ``first``
     and ``end`` counted from h0."""
-    per = ssm_dims(cfg)[1] // cfg.mamba_ngroups
+    return _group_segments(ssm_dims(cfg)[1] // cfg.mamba_ngroups, h0, h)
+
+
+def _group_segments(per: int, h0: int, h: int) -> list[tuple[int, int, int]]:
+    """:func:`_segments` at ``per`` heads a group."""
     out, a = [], h0
     while a < h0 + h:
         g = a // per
@@ -186,34 +198,19 @@ def _ssd_scan(xs, Bg, Cg, dtg, lg, segs):
     return y, hs
 
 
-def _block_local(cfg: ModelConfig, proj, conv_w, conv_b, dt_bias, A_log, D,
-                 h0: int, h: int, return_state: bool):
-    """The prefill mixer of heads [h0, h0 + h) on plain tensors, from the
-    whole columns of the fused projection (B, S, 2 d_in + 2GN + H): the
-    gated output ``y * silu(z)`` (B, S, h P) (:func:`_gate`), the SSD state
-    (B, h, P, N) and, with ``return_state``, the last K-1 conv inputs of
-    every channel (B, K-1, d_in + 2GN) in f32."""
-    B, S, _ = proj.shape
-    d_in, _, P, N = ssm_dims(cfg)
-    G = cfg.mamba_ngroups
+def _ssd_plain(xbc, dt, loga, D, *, h0: int, heads_per_group: int,
+               head_dim: int, state: int):
+    """The SSD of a whole prefill of heads [h0, h0 + h) in plain torch ops,
+    the plain version of :func:`repro_torch.kernels.ssd_scan.ssd_scan` (same
+    arguments): ``xbc`` (B, S, h P + 2 G N) the conv's silu output (x, then
+    every group's B and C), ``dt`` and the log-decay ``loga`` (B, S, h) f32,
+    ``D`` (h,). Pads to a chunk multiple, runs :func:`_ssd_scan` and adds
+    ``D x``. Returns y (B, S, h P) and the final state (B, h, P, N), f32."""
+    B, S, _ = xbc.shape
+    h, P, N = dt.shape[-1], head_dim, state
+    G = (xbc.shape[-1] - h * P) // (2 * N)
     f32 = torch.float32
-    z, xc, Bc, Cc, dt = _heads(cfg, proj, h0, h)
-    tail = None
-    if return_state:
-        conv_all = proj[..., d_in:2 * d_in + 2 * G * N]    # x | B | C
-        Kc = cfg.ssm_conv - 1
-        if S >= Kc:
-            tail = conv_all[:, S - Kc:].to(f32)
-        else:                                      # tiny test sequences
-            tail = F.pad(conv_all.to(f32), (0, 0, Kc - S, 0))
-    conv_in = torch.cat([xc, Bc, Cc], dim=-1)
-    conv_out, _ = _conv1d(_channels(cfg, conv_w, h0, h),
-                          _channels(cfg, conv_b, h0, h), conv_in)
-    xc, Bc, Cc = torch.split(F.silu(conv_out), [h * P, G * N, G * N],
-                             dim=-1)
-
-    dt = F.softplus(dt.to(f32) + dt_bias[h0:h0 + h])             # (B,S,h)
-    loga = -torch.exp(A_log[h0:h0 + h]) * dt                      # <= 0
+    xc, Bc, Cc = torch.split(xbc, [h * P, G * N, G * N], dim=-1)
 
     # pad to a chunk multiple and cut into nc chunks of Q
     Q = min(CHUNK, S)
@@ -229,10 +226,54 @@ def _block_local(cfg: ModelConfig, proj, conv_w, conv_b, dt_bias, A_log, D,
     xs = chunks(xc, h, P)                                  # x's dtype
     y, hs = _ssd_scan(xs, chunks(Bc.to(f32), G, N),
                       chunks(Cc.to(f32), G, N), chunks(dt, h),
-                      chunks(loga, h), _segments(cfg, h0, h))
+                      chunks(loga, h), _group_segments(heads_per_group, h0,
+                                                       h))
     y = y.permute(0, 1, 3, 2, 4).reshape(B, Sp, h, P)[:, :S]
-    y = y + D[h0:h0 + h][:, None] * xs.reshape(B, Sp, h, P)[:, :S]
-    return _gate(cfg, y.reshape(B, S, h * P), z), hs, tail
+    y = y + D[:, None] * xs.reshape(B, Sp, h, P)[:, :S]
+    return y.reshape(B, S, h * P), hs
+
+
+def _fused(*ts: torch.Tensor) -> bool:
+    """Whether the SSD runs in the card's kernels: the tensors lie on a CUDA
+    device and autograd records nothing (no gradient is asked of them)."""
+    return ts[0].is_cuda and not (torch.is_grad_enabled()
+                                  and any(t.requires_grad for t in ts))
+
+
+def _block_local(cfg: ModelConfig, proj, conv_w, conv_b, dt_bias, A_log, D,
+                 h0: int, h: int, return_state: bool, fused: bool):
+    """The prefill mixer of heads [h0, h0 + h) on plain tensors, from the
+    whole columns of the fused projection (B, S, 2 d_in + 2GN + H): the
+    gated output ``y * silu(z)`` (B, S, h P) (:func:`_gate`), the SSD state
+    (B, h, P, N) and, with ``return_state``, the last K-1 conv inputs of
+    every channel (B, K-1, d_in + 2GN) in f32. The SSD runs in the card's
+    kernels with ``fused`` (:func:`_fused` of the mixer's inputs), else in
+    :func:`_ssd_plain`."""
+    B, S, _ = proj.shape
+    d_in, H, P, N = ssm_dims(cfg)
+    G = cfg.mamba_ngroups
+    f32 = torch.float32
+    z, xc, Bc, Cc, dt = _heads(cfg, proj, h0, h)
+    tail = None
+    if return_state:
+        conv_all = proj[..., d_in:2 * d_in + 2 * G * N]    # x | B | C
+        Kc = cfg.ssm_conv - 1
+        if S >= Kc:
+            tail = conv_all[:, S - Kc:].to(f32)
+        else:                                      # tiny test sequences
+            tail = F.pad(conv_all.to(f32), (0, 0, Kc - S, 0))
+    conv_in = torch.cat([xc, Bc, Cc], dim=-1)
+    conv_out, _ = _conv1d(_channels(cfg, conv_w, h0, h),
+                          _channels(cfg, conv_b, h0, h), conv_in)
+    xbc = F.silu(conv_out)                          # (B, S, h P + 2GN)
+
+    dt = F.softplus(dt.to(f32) + dt_bias[h0:h0 + h])             # (B,S,h)
+    loga = -torch.exp(A_log[h0:h0 + h]) * dt                      # <= 0
+    Dh = D[h0:h0 + h]
+    ssd = ssd_kernel.ssd_scan if fused else _ssd_plain
+    y, hs = ssd(xbc, dt, loga, Dh, h0=h0, heads_per_group=H // G,
+                head_dim=P, state=N)
+    return _gate(cfg, y, z), hs, tail
 
 
 def _gate(cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -300,7 +341,9 @@ def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor,
     after the last token: ``conv`` holds the last K-1 conv INPUTS (before the
     conv and the silu) in f32, left-padded with zeros when S < K-1; padding
     the sequence to a chunk multiple is state-neutral (padded ``loga`` and
-    ``dt`` are zero: decay 1, no input).
+    ``dt`` are zero: decay 1, no input). Beside them, ``fused`` says whether
+    the SSD ran in the card's kernels (:func:`_fused`, decided here once for
+    every rank's heads).
 
     On DTensors (a sharded model) the mixer runs on each rank's batch rows
     and SSM heads (:func:`_on_heads`); the gated norm's statistics reduce
@@ -308,15 +351,16 @@ def mamba2_block(cfg: ModelConfig, p, x: torch.Tensor,
     them, as the dense family's ``wo``."""
     proj = x @ p["in_proj"]
     args = (proj, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], p["D"])
+    fused = _fused(*args)
     if isinstance(proj, DTensor):
-        y, hs, tail = _on_heads(cfg, _block_local, args, (return_state,),
-                                tail=return_state)
+        y, hs, tail = _on_heads(cfg, _block_local, args,
+                                (return_state, fused), tail=return_state)
     else:
         y, hs, tail = _block_local(cfg, *args, 0, ssm_dims(cfg)[1],
-                                   return_state)
+                                   return_state, fused)
     out = _gated_norm(cfg, p["norm"], y, proj.dtype) @ p["out_proj"]
     if return_state:
-        return out, {"conv": tail, "ssm": hs}
+        return out, {"conv": tail, "ssm": hs, "fused": fused}
     return out
 
 
