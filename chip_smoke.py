@@ -1,12 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one H100 and check every kernel on its path.
+"""Drive the PyTorch/CUDA port on one H100 and check what only the card shows.
 
     python3 chip_smoke.py                          # the whole check
-    python3 chip_smoke.py --sweep-decode-chunks    # decode chunk sizes only
-    python3 chip_smoke.py --probe-consistency      # zamba2 decode vs prefill
+    python3 chip_smoke.py --kernels                # the kernel phase only
     python3 chip_smoke.py --train-phase ARCH B S   # one family's train phase
-    python3 chip_smoke.py --serve-phase            # the serve phases only
-    python3 chip_smoke.py --time-ssd               # the SSD kernels only
 
 Run from the root of a checkout, on a machine with one CUDA card. It imports
 nothing of JAX and nothing of the reference package ``repro``; it builds the
@@ -28,36 +25,13 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    three kernels against ``models.ssm._ssd_plain`` at a zamba2-7b Mamba2
    layer's shapes (SSD_LAYER, bf16 x, B and C; SSD_CHECKED lengths, within
    SSD_TOL of each output's largest magnitude), timed at 3,072 tokens;
-4. serves granite-3-2b at full published width (40 layers, bf16, random
-   weights from a seed) with two ServingEngines on one tiered LocStore behind
-   the Router: 12 sessions, 32 pooled decode steps, a park + warm + resume
-   checked token for token against a never-parked control, and two
-   follow-ups; the kernels' launch counts over that run must equal what the
-   path implies (40 per prefill, 40 per decode step); this and every later
-   serve phase then times and profiles one engine's pooled step op by op
-   and replayed from the engine's captured CUDA graph (``step_modes``);
-5. serves gemma3-12b at full width with its depth cut to 6 layers (one 5:1
-   local:global group) so the run stays inside its time limit: one engine, a
-   1536-token prompt (longer than the 1024 window), 16 decode steps;
-6. serves whisper-medium at its published width and depth (2 engines x 8
-   slots, max_seq 448, seeded frames), llama-3.2-vision-90b at published
-   width cut to 10 layers (2 groups of 4 self + 1 cross, gates opened,
-   seeded patches) and deepseek-v3-671b at published width cut to 4 layers
-   (3 dense + 1 MoE of 256 experts): per phase TTFT, decode step wall and
-   device time, the kernels' launches per prefill and per step (checked
-   against the path), KV bytes per session, peak memory, and a parked
-   session resumed token for token against a never-parked control; each
-   phase's models, engines and stores are freed before the next;
-7. serves the recurrent families at published width and full depth, the
-   same way: zamba2-7b (81 Mamba2 layers, the one shared attention block
-   applied at 13 points: 13 flash launches per prefill, 13 decode launches
-   per step, at head dim 112; the SSD's 3 kernels per Mamba2 layer, 243
-   per prefill) and rwkv6-1.6b (no attention: no kernel
-   launch; a session's state is the same 12,976,132 bytes at any length);
-8. drives a short seeded trace through the port's TraceDriver over two
-   granite-3-2b engines (real prefills, modeled service times) and prints
-   its TraceReport beside the measured prefill seconds;
-9. trains granite-3-2b at published width and depth (40 layers, bf16
+4. serves every family (``SERVE``) at published width, depth cut where
+   one card or the phase's time asks, through the Router over two
+   ServingEngines, each pooled step replayed from its captured CUDA graph:
+   K1, K2 and SSD launches counted from zero against the design, a parked,
+   warmed and resumed session token for token against a never-parked
+   control, a live follow-up, every session's tokens;
+5. trains granite-3-2b at published width and depth (40 layers, bf16
    weights, f32 AdamW moments, random weights from a seed) through
    ``repro_torch.train.loop.train``: 3 steps of 8 x 4096 tokens in 2
    microbatches, the flash kernel as the forward of its autograd node (160
@@ -69,7 +43,7 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    backward and AdamW), the gradient check against ``impl="plain"`` (depth
    2, f32 and bf16; a forward with a planted fault must fail it) and the
    restart check (depth 4, checkpoints every 2 steps, a failure at step 5);
-10. trains the other families at published width (``TRAIN_PHASES``):
+6. trains the other families at published width (``TRAIN_PHASES``):
    whisper-medium (24 + 24 layers, B8 S448 with seeded frames), llama-3.2-
    vision-90b (5 layers: one group, gates opened, B2 S1024 with seeded
    patches, bf16 moments), deepseek-v3-671b (4 layers + MTP, B1 S1024; the
@@ -84,7 +58,7 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    (``forward_flops``); a gradient check per family with attention at
    published width and a small depth (f32 and bf16, the planted fault
    failing it), every binding of ``attention_op`` swapped;
-11. runs the paper's workflow layer on the card through
+7. runs the paper's workflow layer on the card through
    ``repro_torch.core.WorkflowExecutor`` and the ProactiveScheduler. The
    quickstart's four-task graph (split, two FFTs, merge) over 64 MiB of
    pinned f32 on 2 nodes mapped to cuda:0, its bodies torch ops on the
@@ -100,7 +74,25 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    must be prefetched and at least one batch must reach its step through
    ``device_copy``; each task's io_wait and run, the workflow's and the
    loop's walls, and the store's movement report are printed;
-12. runs ``repro_torch.dist`` on a one-rank NCCL group and a ("data",
+8. the launch phase (``launch_phase``): ``python -m
+   repro_torch.launch.dryrun --arch granite-3-2b --mesh pod1`` as a
+   subprocess (a fake 512-rank group on meta tensors), its three records
+   ``ok`` with the sharded step's per-device fields printed beside the
+   data rank's; then ``repro_torch.launch.profile_cell`` on cuda:0 for each of
+   those cells at published width and depth, one data rank's batch:
+   train_4k (16 x 4096, the recipe's 2 microbatches), prefill_32k (B2,
+   max_seq 32768), decode_32k (B8 over a 32,768-row cache); K1 160 a train
+   step, 40 a prefill, K2 40 and K1 0 a decode step, and the card's
+   dispatched matmul FLOPs equal to the dry run's meta count (FLOPS_RTOL);
+   wall, busy time, idle share, MFU, top kernels and peak memory against
+   the dry run's estimate are printed. The kernel phase (3) also holds K1
+   at prefill_32k's shape (on its first and last 1,024 query rows) and K2
+   at decode_32k's to their plain versions and times them;
+9. the examples phase (``examples_phase``): ``repro_torch.examples``'
+   quickstart, serve_routed, train_lm (the 100M model, 300 steps, a
+   failure at step 150) and elastic_restart on the card with their
+   defaults, their own assertions the checks;
+10. runs ``repro_torch.dist`` on a one-rank NCCL group and a ("data",
    "model") 1x1 DeviceMesh on cuda:0 (``dist_phase``): deepseek-v3-671b at
    published width, 4 layers + MTP, B1 S1024, its loss and gradient once
    unmeshed (the global MoE path) and once under ``sharding_rules(mesh)``
@@ -131,38 +123,19 @@ port's kernels from ``src/repro_torch/kernels/csrc`` with nvcc and then:
    train step, 243 SSD kernels a prefill and none a train step; rwkv
    none), the host walls of a decode step and of the train step both
    ways;
-   and the host cost of the ``hint`` and
-   ``tp_divides`` sites in one granite-3-2b decode step (``hint_sites``);
-   (before it, 11a and 11b:)
-11a. the launch phase (``launch_phase``): ``python -m
-   repro_torch.launch.dryrun --arch granite-3-2b --mesh pod1`` as a
-   subprocess (a fake 512-rank group on meta tensors), its three records
-   ``ok`` with the sharded step's per-device fields printed beside the
-   data rank's; then ``repro_torch.launch.profile_cell`` on cuda:0 for each of
-   those cells at published width and depth, one data rank's batch:
-   train_4k (16 x 4096, the recipe's 2 microbatches), prefill_32k (B2,
-   max_seq 32768), decode_32k (B8 over a 32,768-row cache); K1 160 a train
-   step, 40 a prefill, K2 40 and K1 0 a decode step, and the card's
-   dispatched matmul FLOPs equal to the dry run's meta count (FLOPS_RTOL);
-   wall, busy time, idle share, MFU, top kernels and peak memory against
-   the dry run's estimate are printed. The kernel phase (3) also holds K1
-   at prefill_32k's shape (on its first and last 1,024 query rows) and K2
-   at decode_32k's to their plain versions and times them;
-11b. the examples phase (``examples_phase``): ``repro_torch.examples``'
-   quickstart, serve_routed, train_lm (the 100M model, 300 steps, a
-   failure at step 150) and elastic_restart on the card with their
-   defaults, their own assertions the checks;
-13. prints the kernels' JSON line, the card line again, and last
+11. prints the kernels' JSON line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
-With ``--sweep-decode-chunks`` it only times the decode kernel at the path's
-shapes at each chunk size of CHUNKS_TRIED (how ``chunk_size`` was chosen);
-with ``--probe-consistency`` it only compares zamba2-7b's decode step with
-its prefill layer by layer (``probe_consistency``); with ``--time-ssd`` it
-only checks and times the chunked SSD's kernels against their plain version
-at a zamba2-7b layer's prefill shapes (``time_ssd``); with ``--train-phase``
-it only runs one family's train phase of TRAIN_PHASES at B x S tokens a
-step (``--train-phase rwkv6-1.6b 4 1024``). None prints a result line.
+Served tokens against a plain reference, the spans and the replayed
+share of the steps are checked on the card by the benchmark's cells
+(``bench/run.py``), and the serving path at smoke sizes by the ``gpu`` tests
+of ``tests/test_torch_serving.py``, ``test_torch_families.py``,
+``test_torch_zamba2_published.py`` and ``test_torch_ssd_kernel.py``.
+
+With ``--kernels`` it runs the kernel phase (3) alone; with
+``--train-phase`` it only runs one family's train phase of TRAIN_PHASES at
+B x S tokens a step (``--train-phase rwkv6-1.6b 4 1024``). Neither prints a
+result line.
 
 Any failure exits non-zero before the last line. Without a CUDA device, or
 without the repository around it, it exits non-zero at once.
@@ -197,7 +170,6 @@ BF16_ATOL, BF16_RTOL = 4e-3, 2.0 ** -6
 # f32 sum order: the kernels accumulate the online softmax tile by tile and
 # the plain version sums the materialised row at once; both are f32 and the
 # measured gap stays far inside 2e-5 (no wider tolerance is needed).
-CONSISTENCY_TOL = 0.15          # bf16: see check_consistency
 
 
 class SmokeFailure(Exception):
@@ -264,6 +236,15 @@ def rotating(n: int):
     """Cycle over ``n`` input sets, so a timed loop does not re-read one set
     out of the 50 MB L2 (each layer of the path reads its own cache)."""
     return itertools.cycle(range(n)).__next__
+
+
+def free_cuda(torch) -> None:
+    """Return a finished phase's memory to the card before the next one
+    (called once the phase's function has returned and dropped its
+    models, engines and stores)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ kernel phase
@@ -372,7 +353,6 @@ DESIGN = {"flash_attention": "wgmma+tma", "decode_attention": "chunked-v16",
 SSD_LAYER = (112, 64, 64, 2)
 SSD_CHECKED = (77, 3000, 3072)
 SSD_TOL = 1e-4
-CHUNKS_TRIED = (128, 192, 256, 320, 384, 512)   # --sweep-decode-chunks
 
 
 def path_lengths(torch, B: int, S: int, seed: int):
@@ -807,766 +787,129 @@ def ssd_errors(torch, got, want) -> tuple[float, float]:
     return max(err), max(rel)
 
 
-def time_ssd(torch) -> None:
-    """The chunked SSD of one zamba2-7b Mamba2 layer's prefill (112 heads of
-    P 64, N 64, 2 groups, bf16 x, B and C) at the cell's prompt lengths:
-    the kernels (``kernels/ssd_scan.py``) against the plain version
-    (``models.ssm._ssd_plain``) on the same tensors, their device times
-    (``time_ms``), the bound (f32 FLOPs at PEAK_F32_FLOPS or bytes at
-    PEAK_BYTES), and the scratch each allocates above its outputs."""
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    from repro_torch.models import ssm
-    for S in (1024, 3072, 3840):
-        args, kw = ssd_case(torch, S)
-        outs, scratch = [], []
-        for fn in (ssd_scan, ssm._ssd_plain):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            outs.append(fn(*args, **kw))
-            torch.cuda.synchronize()
-            scratch.append(torch.cuda.max_memory_allocated() - base
-                           - sum(t.nbytes for t in outs[-1]))
-        err = [float((a - b).abs().max() / b.abs().max())
-               for a, b in zip(*outs)]
-        del outs
-        need(max(err) <= SSD_TOL, f"ssd kernels at S {S}: error {err}")
-        kernel = time_ms(torch, lambda: ssd_scan(*args, **kw), calls=20)
-        plain = time_ms(torch, lambda: ssm._ssd_plain(*args, **kw), calls=2)
-        flops, nbytes = ssd_work(S)
-        bound, kind = bound_ms(flops, nbytes, "float32")
-        print("[ssd] " + json.dumps(dict(
-            S=S, kernel_ms=round(kernel, 4), plain_ms=round(plain, 4),
-            bound_ms=round(bound, 4), bound=kind, gflop=round(flops / 1e9, 3),
-            mbytes=round(nbytes / 1e6, 1),
-            kernel_tflops=round(flops / kernel / 1e9, 2),
-            rel_err_y_state=[float(f"{e:.3g}") for e in err],
-            scratch_bytes_kernel_plain=scratch,
-            plain_device_ops=len(device_ops(torch, ssm._ssd_plain, args, kw)),
-            kernels_ms=device_ops(torch, ssd_scan, args, kw))), flush=True)
+# ------------------------------------------------------------------ serve phase
+# The serving path as the benchmark runs it, for every family at published
+# width and the depth it gets in the phase's time: (arch, layers or None for
+# the published depth, slots an engine, max_seq, prompt lengths, pooled
+# steps). gemma3's 1,536-token prompt runs past its 1,024-token window.
+SERVE = [
+    ("granite-3-2b", None, 8, 2048,
+     (1000, 700, 512, 384, 256, 128, 1024, 900, 200, 640, 160), 40),
+    ("gemma3-12b", 6, 2, 2048, (1536, 1100), 16),
+    ("whisper-medium", None, 8, 448,
+     (256, 200, 160, 128, 96, 64, 48, 32, 240, 180, 120), 16),
+    ("llama-3.2-vision-90b", 10, 4, 2048, (512, 384, 200), 8),
+    ("deepseek-v3-671b", 4, 4, 2048, (1024, 300, 64), 8),
+    ("zamba2-7b", None, 4, 2048, (1024, 700, 512, 384, 256, 128), 16),
+    ("rwkv6-1.6b", None, 8, 2048,
+     (512, 448, 384, 320, 256, 200, 160, 128, 96, 80, 64), 16),
+]
 
 
-def device_ops(torch, fn, args, kw) -> dict[str, float]:
-    """Device milliseconds of each kernel, copy and fill that one call of
-    ``fn`` puts on the device, by name, as ``torch.profiler`` traces them."""
-    from torch.profiler import ProfilerActivity, profile
-    fn(*args, **kw)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*args, **kw)
-        torch.cuda.synchronize()
-    out: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = f"{len(out)}:{e.name[:40]}"
-            out[key] = round(e.device_time_total / 1e3, 4)
-    return out
-
-
-def sweep_decode_chunks(torch, ref) -> None:
-    """Device ms of the decode kernel at each of CHUNKS_TRIED keys per block,
-    at the serving path's shapes, bf16, for three seeded length sets; each
-    output is held to the plain version first."""
-    from repro_torch.kernels import decode_attention as dmod
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    print("[sweep] decode_attention device ms by chunk size (CUDA graph of "
-          "calls over rotating input sets)", flush=True)
-    for name, (B, S, Hq, Hkv, hd, window), mode in DECODE_PATH:
-        if mode != "random":
-            continue
-        n = max(1, min(8, math.ceil(100e6 / (4 * B * S * Hkv * hd))))
-        sets = [tuple(torch.randn(s, generator=gen, device="cuda")
-                      .to(torch.bfloat16)
-                      for s in ((B, Hq, hd), (B, S, Hkv, hd), (B, S, Hkv, hd)))
-                for _ in range(n)]
-        nxt = rotating(n)
-        scale = hd ** -0.5
-        for seed in (SEED, SEED + 1, SEED + 2):
-            lens = path_lengths(torch, B, S, seed)
-            want = ref.decode_attention_ref(*sets[0], lens, window=window)
-            dmod.decode_attention(*sets[0], lens, window=window)  # its checks
-            tried = []
-            for chunk in CHUNKS_TRIED:
-                err, ratio, ok = compare(torch, dmod._launch(
-                    *sets[0], lens, window, scale, chunk), want)
-                need(ok, f"decode chunk {chunk} {name}: err {err}, ratio "
-                     f"{ratio}")
-                tried.append((chunk, time_ms(torch, lambda: dmod._launch(
-                    *sets[nxt()], lens, window, scale, chunk), 50)))
-            print(f"  {name:18s} lengths {lens.tolist()} (chunk_size "
-                  f"{dmod.chunk_size(hd)}): " + ", ".join(
-                      f"{c}: {t:.4f}" for c, t in tried), flush=True)
-
-
-# ------------------------------------------------------------------ serve phases
-def check_consistency(torch, M, cfg, model, prompt: list[int], steps: int,
-                      label: str, extra: dict | None = None,
-                      gate: bool = True) -> float:
-    """Ties K1 to K2: decode step t's logits (K2 over the prefilled cache)
-    must match the last-position logits of a prefill (K1) of the prompt plus
-    the t tokens. Compared as log-probabilities; the two paths round bf16 at
-    different places (one position's activations vs a whole sequence's
-    matmuls), through every layer, so the bound is stated for bf16:
-    CONSISTENCY_TOL on the max |difference| of the top-32 log-probs.
-    ``extra`` (frames or patches) goes into every prefill's batch. With
-    ``gate=False`` the figure is printed and returned, not checked."""
-    dev = model.device
-    extra = extra or {}
-    with torch.no_grad():
-        tok = torch.tensor([prompt], device=dev)
-        logits, state = M.prefill(cfg, model, {"tokens": tok, **extra},
-                                  len(prompt) + steps + 1)
-        seq = list(prompt)
-        nxt = int(logits[0, -1].argmax())
-        worst = 0.0
-        for _ in range(steps):
-            seq.append(nxt)
-            step_logits, state = M.decode_step(
-                cfg, model, state, torch.tensor([[nxt]], device=dev))
-            full, _ = M.prefill(
-                cfg, model, {"tokens": torch.tensor([seq], device=dev),
-                             **extra}, len(seq))
-            a = torch.log_softmax(step_logits[0, -1].float(), -1)
-            b = torch.log_softmax(full[0, -1].float(), -1)
-            need(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
-                 f"{label}: non-finite logits")
-            top = torch.topk(b, 32).indices
-            worst = max(worst, (a[top] - b[top]).abs().max().item())
-            nxt = int(step_logits[0, -1].argmax())
-    ok = worst <= CONSISTENCY_TOL
-    verdict = ("ok" if ok else "FAIL") if gate else \
-        f"{'within' if ok else 'over'} tol, reported only"
-    print(f"  consistency {label} {str(model.final_norm.dtype)[6:]}: decode "
-          f"step vs prefill of prompt+t ({steps} steps) max |dlogp| over "
-          f"top-32 = {worst:.4f} tol={CONSISTENCY_TOL} {verdict}", flush=True)
-    if gate:
-        need(ok, f"{label}: decode/prefill logits disagree by {worst}")
-    return worst
-
-
-def probe_consistency(torch) -> None:
-    """Where zamba2-7b's decode step and its chunked prefill part: the
-    consistency check's prompt (the first 256 tokens of the serve phase's
-    first prompt) and 3 decode steps, at full width, in bf16 with cuBLAS
-    allowed reduced-precision (bf16) split-K reductions (torch's default),
-    in bf16 without them, and in f32 (weights drawn from the same seed).
-    Prints the worst |dlogp| over the top 32 as check_consistency does, and
-    for the first step the relative difference max|a - b| / max|b| of each
-    layer's normed input at the new position (every Mamba2 layer and each
-    application of the shared block, in order); granite-3-2b's consistency
-    under both bf16 settings is printed beside it."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    from repro_torch.models import ssm
-    rec: list[torch.Tensor] = []
-    orig = (ssm.mamba2_block, ssm.mamba2_step, M._attn_prefill,
-            M._attn_decode)
-
-    def recorded(fn, at):
-        def wrapper(cfg_, p, *args, **kw):
-            rec.append(args[at][0, -1].float())
-            return fn(cfg_, p, *args, **kw)
-        return wrapper
-
-    ssm.mamba2_block = recorded(orig[0], 0)
-    ssm.mamba2_step = recorded(orig[1], 1)
-    M._attn_prefill = recorded(orig[2], 0)
-    M._attn_decode = recorded(orig[3], 0)
-    print("[probe] decode step vs prefill of prompt+t, layer by layer",
-          flush=True)
-    try:
-        for name, steps, per_layer in (("zamba2-7b", 3, True),
-                                       ("granite-3-2b", 3, False)):
-            full = get_config(name)
-            prompt = seeded_prompts(full, [1024])[0][:256]
-            for dtype, reduced in (("bfloat16", True), ("bfloat16", False),
-                                   ("float32", False)):
-                if dtype == "float32" and not per_layer:
-                    continue
-                torch.backends.cuda.matmul \
-                    .allow_bf16_reduced_precision_reduction = reduced
-                cfg = dataclasses.replace(full, dtype=dtype)
-                model = M.init_params(cfg, SEED, device="cuda")
-                worst, rel = 0.0, []
-                with torch.no_grad():
-                    logits, state = M.prefill(cfg, model, {
-                        "tokens": torch.tensor([prompt], device="cuda")},
-                        len(prompt) + steps + 1)
-                    seq, nxt = list(prompt), int(logits[0, -1].argmax())
-                    for t in range(steps):
-                        seq.append(nxt)
-                        rec.clear()
-                        a, state = M.decode_step(cfg, model, state,
-                                                 torch.tensor([[nxt]],
-                                                              device="cuda"))
-                        dec = list(rec)
-                        rec.clear()
-                        b, _ = M.prefill(cfg, model, {"tokens": torch.tensor(
-                            [seq], device="cuda")}, len(seq))
-                        if t == 0:
-                            rel = [((x - y).abs().max()
-                                    / y.abs().max().clamp(min=1e-30)).item()
-                                   for x, y in zip(dec, rec)]
-                        la = torch.log_softmax(a[0, -1].float(), -1)
-                        lb = torch.log_softmax(b[0, -1].float(), -1)
-                        top = torch.topk(lb, 32).indices
-                        worst = max(worst, (la[top] - lb[top]).abs().max()
-                                    .item())
-                        nxt = int(a[0, -1].argmax())
-                print(f"  {name} {dtype} reduced-precision split-K "
-                      f"{'allowed' if reduced else 'off'}: max |dlogp| over "
-                      f"top-32 = {worst:.4f} (tol {CONSISTENCY_TOL})",
-                      flush=True)
-                if per_layer:
-                    print(f"    per layer (step 1, {len(rel)} inputs): "
-                          + " ".join(f"{r:.1e}" for r in rel), flush=True)
-                del model, state
-                free_cuda(torch)
-    finally:
-        ssm.mamba2_block, ssm.mamba2_step, M._attn_prefill, \
-            M._attn_decode = orig
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-            True
-
-
-def seeded_prompts(cfg, lens: list[int]) -> list[list[int]]:
-    """One prompt of each length, tokens from default_rng(SEED)."""
+def serve_family(torch, kern, arch: str, layers: int | None, max_batch: int,
+                 max_seq: int, lens: tuple, steps: int) -> dict:
+    """Serve ``arch`` (random weights from SEED) through two ServingEngines
+    on one tiered LocStore behind the Router with a PrefetchEngine, each
+    pooled step replayed from its CUDA graph: one session per prompt, each
+    with its own seeded frames or patches, and a never-parked control of
+    the first on the other engine. Halfway the first session is parked,
+    warmed and resumed by a follow-up, and the second's follow-up is a live
+    hit. Checks, from counters zeroed just before: K1 launches = attention
+    applications x prefills, K2 = attention layers x pooled steps (0 for
+    MLA and rwkv), SSD kernels = 3 x Mamba2 layers x prefills; every pooled
+    step after each engine's first replayed; the resumed session's tokens
+    equal its control's, and every session's are in the vocab. Returns the
+    launches."""
     import numpy as np
-    rng = np.random.default_rng(SEED)
-    return [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
-
-
-def serve_family(torch, kern, cfg, *, label: str, n_engines: int,
-                 max_batch: int, max_seq: int, prompts: list[list[int]],
-                 steps: int, flash_per_prefill: int, decode_per_step: int,
-                 kv_bytes: int, ssd_per_prefill: int = 0,
-                 park_at: int | None = None,
-                 gates: bool = False,
-                 consistency: tuple[int, int, int] | None = None,
-                 consistency_dtype: str | None = None,
-                 live_follow_up: bool = False, check_warm: bool = False,
-                 profile_prompt: list[int] | None = None) -> dict:
-    """Serve ``cfg`` (random weights from SEED) through ServingEngines on
-    one tiered LocStore behind the Router: one session per prompt, each with
-    its own seeded frames or patches, plus a never-parked control of the
-    first; ``steps`` pooled decode steps, with the first session parked,
-    warmed and resumed by a follow-up before step ``park_at`` (default
-    halfway). Checks the kernels' launch counts against what the path
-    implies (``flash_per_prefill`` per prefill, ``decode_per_step`` per
-    pooled step: 0 where the path has no such kernel; ``ssd_per_prefill``
-    SSD kernels per prefill, 0 but in the hybrid family), the resumed session
-    against its control token for token, every session's tokens, and the
-    slot bytes against ``kv_bytes``. Optional checks: ``live_follow_up``
-    (a follow-up of the second session is a live hit, no prefill),
-    ``check_warm`` (Router.warm promotes the parked session) and
-    ``consistency`` = (session, prompt tokens, steps), the decode path
-    against the prefill path, checked in ``consistency_dtype`` when given (a
-    second model from the same seed, whose weights round to the served
-    ones; the served dtype's figure is then printed beside it, unchecked);
-    ``profile_prompt`` adds a profiled prefill."""
+    from repro_torch.configs import get_config
     from repro_torch.core.config import ServingConfig
     from repro_torch.core.locstore import LocStore, tiered_hierarchy
     from repro_torch.core.prefetch import PrefetchEngine
-    from repro_torch.launch.profile_cell import profile
     from repro_torch.models import model as M
     from repro_torch.serve.engine import Router, ServingEngine
-    park_at = steps // 2 if park_at is None else park_at
-    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    label = f"{arch} ({cfg.n_layers} of {full.n_layers} layers)"
+    print(f"[serve] {label}, d_model {cfg.d_model}, {cfg.dtype}, 2 engines "
+          f"x {max_batch} slots of {max_seq}", flush=True)
     t0 = time.perf_counter()
     model = M.init_params(cfg, SEED, device="cuda")
-    torch.cuda.synchronize()
-    print(f"  params {M.param_count(cfg):,} initialised in "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
-    if gates:
+    if cfg.family == "vlm":
         open_gates(torch, model)
-        print("  cross-attention gates set to 0.5 (tanh 0.462) in every "
-              "group", flush=True)
-    store = LocStore(n_engines, hierarchy=tiered_hierarchy())
-    config = ServingConfig(max_batch=max_batch, max_seq=max_seq)
-    engines = [ServingEngine(cfg, model, config=config, node=i, store=store)
-               for i in range(n_engines)]
+    store = LocStore(2, hierarchy=tiered_hierarchy())
+    engines = [ServingEngine(cfg, model, node=i, store=store,
+                             config=ServingConfig(max_batch=max_batch,
+                                                  max_seq=max_seq))
+               for i in range(2)]
     prefetch = PrefetchEngine(store)
     router = Router(engines, store, prefetch=prefetch)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     key = M._EXTRAS.get(cfg.family)
     n_extra = cfg.n_frames if key == "frames" else cfg.n_patches
-
-    def extras():
-        if key is None:
-            return None
-        return {key: torch.randn((1, n_extra, cfg.d_model), generator=gen,
-                                 device="cuda").to(torch.bfloat16)}
-
-    ex = [extras() for _ in prompts]
-    if key is not None:
-        print(f"  seeded {key} (1, {n_extra}, {cfg.d_model}) bf16 for every "
-              f"session", flush=True)
-
-    flash, decode = kern["flash"], kern["decode"]
-    flash.launches = 0
-    decode.launches = 0
-    kern["ssd"].launches = 0
-    # ------------------------------------------------------------ main path
-    ttft, placed = [], []
-    for p, e in zip(prompts, ex):
-        t = time.perf_counter()
-        eng = router.engine_for()
-        sid = eng.submit(p, e)
-        ttft.append(time.perf_counter() - t)
-        placed.append((eng, sid))
-    a_eng, a_sid = placed[0]
-    c_eng = next((e for e in engines if e is not a_eng), a_eng)
-    t = time.perf_counter()
-    c_sid = c_eng.submit(prompts[0], ex[0])     # the never-parked control
-    ttft.append(time.perf_counter() - t)
-    placed.append((c_eng, c_sid))
-    step_wall, n_tokens, d1, d2, warmed = [], 0, None, None, None
-    for i in range(steps):
-        if i == park_at:
-            a_eng.park(a_sid)
-            warmed = router.warm(a_sid)
-            prefetch.drain()
-            d1 = router.follow_up(a_sid, a_eng.sessions[a_sid].tokens)
-            if live_follow_up:
-                b_eng, b_sid = placed[1]
+    ex = [None if key is None else
+          {key: torch.randn((1, n_extra, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)}
+          for _ in prompts]
+    flash, decode, ssd = kern["flash"], kern["decode"], kern["ssd"]
+    flash.launches = decode.launches = ssd.launches = 0
+    try:
+        placed = []
+        for p, e in zip(prompts, ex):
+            eng = router.engine_for()
+            placed.append((eng, eng.submit(p, e)))
+        (a_eng, a_sid), (b_eng, b_sid) = placed[:2]
+        c_eng = next(e for e in engines if e is not a_eng)
+        placed.append((c_eng, c_eng.submit(prompts[0], ex[0])))
+        for i in range(steps):
+            if i == steps // 2:
+                a_eng.park(a_sid)
+                warmed = router.warm(a_sid)
+                prefetch.drain()
+                d1 = router.follow_up(a_sid, a_eng.sessions[a_sid].tokens)
                 d2 = router.follow_up(b_sid, b_eng.sessions[b_sid].tokens)
-        t = time.perf_counter()
-        for e in engines:
-            n_tokens += len(e.step())
+            for e in engines:
+                e.step()
         torch.cuda.synchronize()
-        step_wall.append(time.perf_counter() - t)
-    k1, k2, k3 = flash.launches, decode.launches, kern["ssd"].launches
-    # ------------------------------------------------------------ checks
+    finally:
+        prefetch.shutdown()
+    got = {"flash_attention": flash.launches,
+           "decode_attention": decode.launches, "ssd_scan": ssd.launches}
     prefills = sum(e.prefills for e in engines)
     n_steps = sum(e.steps for e in engines)
-    print(f"  launches: flash_attention {k1} ({flash_per_prefill} x "
-          f"{prefills} prefills = {flash_per_prefill * prefills}), "
-          f"decode_attention {k2} ({decode_per_step} x {n_steps} decode steps "
-          f"= {decode_per_step * n_steps}), ssd_scan {k3} ({ssd_per_prefill} "
-          f"x {prefills} prefills = {ssd_per_prefill * prefills})",
-          flush=True)
-    need((k1 > 0 or flash_per_prefill == 0)
-         and (k2 > 0 or decode_per_step == 0),
-         f"{label}: a kernel of the path was never launched")
-    need(k1 == flash_per_prefill * prefills,
-         f"{label}: flash launches {k1} != {flash_per_prefill} x {prefills}")
-    need(k2 == decode_per_step * n_steps,
-         f"{label}: decode launches {k2} != {decode_per_step} x {n_steps}")
-    need(k3 == ssd_per_prefill * prefills and (k3 > 0 or ssd_per_prefill == 0),
-         f"{label}: ssd_scan launches {k3} != {ssd_per_prefill} x {prefills}")
-    need(d1 is not None and d1.kind == "hit_parked" and d1.resumed
-         and not d1.prefilled, f"{label}: park/resume follow-up went {d1}")
-    if live_follow_up:
-        need(d2.kind == "hit_live" and not d2.prefilled,
-             f"{label}: live follow-up went {d2}")
-    if check_warm:
-        need(warmed, f"{label}: Router.warm did not promote the parked "
-             f"session")
-    a_tok = a_eng.sessions[a_sid].tokens
-    c_tok = c_eng.sessions[c_sid].tokens
-    print(f"  park/resume: resumed session {len(a_tok)} tokens, last 6 "
-          f"{a_tok[-6:]}; control last 6 {c_tok[-6:]}", flush=True)
-    need(a_tok == c_tok, f"{label}: resumed session diverged from its "
-         f"never-parked control")
+    k2 = 0 if cfg.family == "rwkv" or cfg.mla is not None else \
+        2 * cfg.n_layers if cfg.family == "encdec" else \
+        attention_applications(cfg)
+    design = {"flash_attention": (attention_applications(cfg), prefills),
+              "decode_attention": (k2, n_steps),
+              "ssd_scan": (3 * cfg.n_layers * (cfg.family == "hybrid"),
+                           prefills)}
+    replays = [e.backend.graph_replays for e in engines]
+    print(f"  {time.perf_counter() - t0:.1f}s; {prefills} prefills, "
+          f"{n_steps} pooled steps ({replays} replayed); launches "
+          + ", ".join(f"{k} {got[k]} ({a} x {n})"
+                      for k, (a, n) in design.items()), flush=True)
+    need(prefills == len(lens) + 1 and n_steps == 2 * steps,
+         f"{label}: {prefills} prefills, {n_steps} pooled steps")
+    for k, (a, n) in design.items():
+        need(got[k] == a * n, f"{label}: {k} launches {got[k]} != {a} x {n}")
+    need(replays == [steps - 1] * 2, f"{label}: pooled steps replayed "
+         f"{replays}, not all but each engine's first")
+    need(warmed, f"{label}: Router.warm did not promote the parked session")
+    need(d1.kind == "hit_parked" and d1.resumed and not d1.prefilled,
+         f"{label}: park/resume follow-up went {d1}")
+    need(d2.kind == "hit_live" and not d2.prefilled,
+         f"{label}: live follow-up went {d2}")
+    need(a_eng.sessions[a_sid].tokens == c_eng.sessions[placed[-1][1]].tokens,
+         f"{label}: resumed session diverged from its never-parked control")
     for e, sid in placed:
         toks = e.sessions[sid].tokens
         need(len(toks) == steps + 1 and all(0 <= x < cfg.vocab for x in toks),
              f"{label}: session {sid} tokens {toks}")
-    kv = engines[0].slot_bytes()
-    need(kv == kv_bytes, f"{label}: slot bytes {kv} != {kv_bytes}")
-    ttft_sorted = sorted(ttft)
-    t_dec = sum(step_wall)
-    res = {"ttft_s_p50": ttft_sorted[len(ttft) // 2],
-           "ttft_s_max": ttft_sorted[-1],
-           "prefill_seconds": [e.prefill_seconds for e in engines],
-           "prompt_tokens": sum(len(p) for p in prompts) + len(prompts[0]),
-           "decode_steps": n_steps,
-           "decode_step_wall_ms": 1e3 * sorted(step_wall)[len(step_wall) // 2]
-           / n_engines,
-           "decode_tokens": n_tokens, "decode_seconds": t_dec,
-           "decode_tokens_per_s": n_tokens / t_dec,
-           "kv_bytes_per_session": kv,
-           "router": {k: getattr(router, k) for k in (
-               "locality_hits", "locality_misses", "locality_evictions",
-               "migrations", "warmups")},
-           "engines": [{"prefills": e.prefills, "steps": e.steps,
-                        "parks": e.parks, "resumes": e.resumes}
-                       for e in engines],
-           "launches": {"flash_attention": k1, "decode_attention": k2,
-                        "ssd_scan": k3},
-           "launches_per_prefill": {"flash_attention": k1 / prefills,
-                                    "decode_attention": 0,
-                                    "ssd_scan": k3 / prefills},
-           "launches_per_step": {"flash_attention": 0,
-                                 "decode_attention": k2 / n_steps,
-                                 "ssd_scan": 0},
-           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    print("  " + json.dumps(res), flush=True)
-    prefetch.shutdown()
-    # where the time goes, and K1/K2 consistency (after every count was read)
-    res["profile_decode"] = profile(
-        f"one pooled decode step (B={max_batch})",
-        lambda: engines[-1].step(), 2)
-    res["step_modes"] = step_modes(torch, engines, label)
-    if profile_prompt is not None:
-        p_eng = next((e for e in engines if e.can_admit()), None)
-        need(p_eng is not None, f"{label}: no free slot for the profiled "
-             f"prefill")
-        res["profile_prefill"] = profile(
-            f"one {len(profile_prompt)}-token prefill",
-            lambda: p_eng.finish(p_eng.submit(profile_prompt)), 1)
-    if consistency is not None:
-        i, n, k = consistency
-        gated = (cfg, model)
-        if consistency_dtype is not None:
-            res["consistency_served_dtype"] = check_consistency(
-                torch, M, cfg, model, prompts[i][:n], k, label, ex[i],
-                gate=False)
-            c2 = dataclasses.replace(cfg, dtype=consistency_dtype)
-            gated = (c2, M.init_params(c2, SEED, device="cuda"))
-        res["consistency"] = check_consistency(
-            torch, M, *gated, prompts[i][:n], k, label, ex[i])
-        del gated
-    res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    print(f"  peak memory {res['peak_memory_bytes'] / 2**30:.2f} GiB",
-          flush=True)
-    return res
-
-
-def step_modes(torch, engines, label: str) -> dict:
-    """The last engine's pooled step op by op and replayed from its captured
-    CUDA graph, each timed and profiled (``profile``: host wall, device
-    busy, host launches) on the engine's state once the phase's checks are
-    done, and every engine's graph captures and replays."""
-    import numpy as np
-    from repro_torch import obs
-    from repro_torch.launch.profile_cell import profile
-    eng = engines[-1]
-    b = eng.backend
-    toks = np.zeros((eng.max_batch, 1), np.int32)
-    with torch.no_grad():
-        out = {mode: profile(f"{label}: one pooled step {how} "
-                             f"(B={eng.max_batch})", fn, 4)
-               for mode, how, fn in (
-                   ("eager", "op by op",
-                    lambda: b._decode_eager(eng.params, eng.state, toks)),
-                   ("graphed", "replayed",
-                    lambda: b.decode(eng.params, eng.state, toks)))}
-        # the replay's enqueue alone: the span ``decode.launch`` with the
-        # tracer on and no profiler
-        obs.reset()
-        obs.enable()
-        try:
-            for _ in range(8):
-                b.decode(eng.params, eng.state, toks)
-            spans = [r.seconds for r in obs.records().spans
-                     if r.name == "decode.launch"]
-        finally:
-            obs.disable()
-            obs.reset()
-    out["replay_launch_ms"] = 1e3 * sorted(spans)[len(spans) // 2]
-    out["graph_captures"] = sum(e.backend.graph_captures for e in engines)
-    out["graph_replays"] = sum(e.backend.graph_replays for e in engines)
-    need(b._graph is not None and out["graph_replays"] > 0,
-         f"{label}: the pooled step was never captured and replayed")
-    e, g = out["eager"], out["graphed"]
-    print(f"  [step-modes] {label}: op by op {e['wall_ms']:.3f} ms wall "
-          f"({e['wall_ms_under_profiler']:.3f} profiled), "
-          f"{e['device_busy_ms']:.3f} ms busy; replayed {g['wall_ms']:.3f} "
-          f"ms wall ({g['wall_ms_under_profiler']:.3f} profiled), "
-          f"{g['device_busy_ms']:.3f} ms busy, its launch span "
-          f"{out['replay_launch_ms']:.3f} ms; graph captures "
-          f"{out['graph_captures']}, replays {out['graph_replays']}",
-          flush=True)
-    return out
-
-
-def serve_granite(torch, kern) -> dict:
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    cfg = get_config("granite-3-2b")
-    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab} (padded {M.padded_vocab(cfg)}), "
-          f"{cfg.dtype}, random weights seed {SEED}", flush=True)
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
-               for n in rng.integers(128, 1025, size=11)]
-    # 80 KiB of K and V per token (2 x 40 layers x 8 heads x 64 x 2 B) per
-    # position of max_seq, plus the slot's 4-byte int32 position
-    return serve_family(
-        torch, kern, cfg, label=cfg.name, n_engines=2, max_batch=8,
-        max_seq=2048, prompts=prompts, steps=40, park_at=32,
-        flash_per_prefill=cfg.n_layers, decode_per_step=cfg.n_layers,
-        kv_bytes=2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 * 2048 + 4,
-        consistency=(1, 256, 4), live_follow_up=True, check_warm=True,
-        profile_prompt=rng.integers(0, cfg.vocab, size=1024).tolist())
-
-
-def serve_gemma(torch, kern) -> dict:
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.core.config import ServingConfig
-    from repro_torch.core.locstore import LocStore, tiered_hierarchy
-    from repro_torch.models import model as M
-    from repro_torch.serve.engine import ServingEngine
-    full = get_config("gemma3-12b")
-    # depth cut to one 5:1 local:global group so the script fits its limit
-    cfg = dataclasses.replace(full, n_layers=6)
-    print(f"[serve] {full.name} at full width (d_model {cfg.d_model}, hd "
-          f"{cfg.hd}, window {cfg.sliding_window}), depth cut "
-          f"{full.n_layers} -> {cfg.n_layers} layers, {cfg.dtype}", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    model = M.init_params(cfg, SEED, device="cuda")
-    store = LocStore(1, hierarchy=tiered_hierarchy())
-    eng = ServingEngine(cfg, model, node=0, store=store,
-                        config=ServingConfig(max_batch=2, max_seq=2048))
-    rng = np.random.default_rng(SEED + 1)
-    prompt = rng.integers(0, cfg.vocab, size=1536).tolist()
-    flash, decode = kern["flash"], kern["decode"]
-    flash.launches = 0
-    decode.launches = 0
-    kern["ssd"].launches = 0
-    t = time.perf_counter()
-    sid = eng.submit(prompt)
-    ttft = time.perf_counter() - t
-    t = time.perf_counter()
-    for _ in range(16):
-        eng.step()
-    t_dec = time.perf_counter() - t
-    torch.cuda.synchronize()
-    k1, k2, k3 = flash.launches, decode.launches, kern["ssd"].launches
-    print(f"  launches: flash_attention {k1} (6 x {eng.prefills} prefill), "
-          f"decode_attention {k2} (6 x {eng.steps} steps)", flush=True)
-    need(k1 == cfg.n_layers * eng.prefills and k1 > 0, "gemma flash launches")
-    need(k2 == cfg.n_layers * eng.steps and k2 > 0, "gemma decode launches")
-    need(k3 == 0, f"gemma ssd_scan launches {k3}")
-    toks = eng.sessions[sid].tokens
-    need(len(toks) == 17 and all(0 <= x < cfg.vocab for x in toks),
-         f"gemma tokens {toks}")
-    res = {"ttft_s": ttft, "prefill_seconds": eng.prefill_seconds,
-           "decode_steps": eng.steps, "decode_seconds": t_dec,
-           "decode_step_ms": 1e3 * t_dec / 16,
-           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-           "launches": {"flash_attention": k1, "decode_attention": k2,
-                        "ssd_scan": k3}}
-    print("  " + json.dumps(res), flush=True)
-    res["step_modes"] = step_modes(torch, [eng], f"{full.name} (6 layers)")
-    res["consistency"] = check_consistency(torch, M, cfg, model, prompt[:1100],
-                                           4, f"{full.name} (6 layers)")
-    del eng, store, model
-    torch.cuda.empty_cache()
-    return res
-
-
-def free_cuda(torch) -> None:
-    """Return a finished phase's memory to the card before the next one
-    (called once the phase's function has returned and dropped its
-    models, engines and stores)."""
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-
-
-def serve_whisper(torch, kern) -> dict:
-    from repro_torch.configs import get_config
-    cfg = get_config("whisper-medium")
-    L, E, kvw = cfg.n_layers, cfg.encoder_layers, cfg.n_kv_heads * cfg.hd
-    print(f"[serve] {cfg.name} at published width and depth ({E} encoder + "
-          f"{L} decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
-          f"vocab {cfg.vocab}, {cfg.n_frames} frames), max_seq 448 (its text "
-          f"context), {cfg.dtype}", flush=True)
-    lens = [256, 200, 160, 128, 96, 64, 48, 32, 240, 180, 120]
-    return serve_family(
-        torch, kern, cfg, label=cfg.name, n_engines=2, max_batch=8,
-        max_seq=448, prompts=seeded_prompts(cfg, lens), steps=16,
-        flash_per_prefill=E + 2 * L, decode_per_step=2 * L,
-        kv_bytes=2 * L * (448 + cfg.n_frames) * kvw * 2 + 4,
-        consistency=(0, 128, 3))
-
-
-def serve_vision(torch, kern) -> dict:
-    from repro_torch.configs import get_config
-    full = get_config("llama-3.2-vision-90b")
-    # depth cut to 2 groups of (4 self + 1 cross): G > 1, inside the limit
-    cfg = dataclasses.replace(full, n_layers=10)
-    G, kvw = cfg.n_layers // cfg.cross_every, cfg.n_kv_heads * cfg.hd
-    print(f"[serve] {full.name} at published width (d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, "
-          f"{cfg.n_patches} patches), depth cut {full.n_layers} -> "
-          f"{cfg.n_layers} layers ({G} groups of 4 self + 1 cross), "
-          f"{cfg.dtype}", flush=True)
-    return serve_family(
-        torch, kern, cfg, label=f"{full.name} (10 layers)", n_engines=1,
-        max_batch=4, max_seq=2048,
-        prompts=seeded_prompts(cfg, [512, 384, 200]), steps=8,
-        flash_per_prefill=cfg.n_layers, decode_per_step=cfg.n_layers,
-        kv_bytes=2 * (G * 4 * 2048 + G * cfg.n_patches) * kvw * 2 + 4,
-        gates=True, consistency=(0, 256, 3))
-
-
-def serve_deepseek(torch, kern) -> dict:
-    from repro_torch.configs import get_config
-    full = get_config("deepseek-v3-671b")
-    # depth cut to the 3 dense layers and 1 MoE layer (256 experts, 22.5 GB)
-    cfg = dataclasses.replace(full, n_layers=4)
-    m = cfg.mla
-    print(f"[serve] {full.name} at published width (d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads, MLA ranks {m.q_lora_rank}/{m.kv_lora_rank}, "
-          f"{cfg.n_experts} experts top-{cfg.experts_per_token}, d_ff "
-          f"{cfg.d_ff}/{cfg.moe_d_ff}), depth cut {full.n_layers} -> "
-          f"{cfg.n_layers} layers ({cfg.first_dense_layers} dense + 1 MoE), "
-          f"{cfg.dtype}; MLA decode and the experts are torch matmuls",
-          flush=True)
-    # no decode-vs-prefill consistency here: prefill drops tokens at the
-    # experts' capacity (counted over the whole prompt) and decode does not
-    return serve_family(
-        torch, kern, cfg, label=f"{full.name} (4 layers)", n_engines=1,
-        max_batch=4, max_seq=2048,
-        prompts=seeded_prompts(cfg, [1024, 300, 64]), steps=8,
-        flash_per_prefill=cfg.n_layers, decode_per_step=0,
-        kv_bytes=cfg.n_layers * 2048 * m.cache_dim * 2 + 4)
-
-
-def serve_zamba2(torch, kern) -> dict:
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.models import ssm
-    cfg = get_config("zamba2-7b")
-    G, tail = divmod(cfg.n_layers, cfg.attn_every)
-    d_in, H, P, N = ssm.ssm_dims(cfg)
-    print(f"[serve] {cfg.name} at published width and depth ({cfg.n_layers} "
-          f"Mamba2 layers = {G} groups of {cfg.attn_every} + {tail}, each "
-          f"group followed by the one shared attention block; d_model "
-          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, "
-          f"SSM {H} heads x {P} x state {N}), {cfg.dtype}", flush=True)
-    # 6 sessions and the control take 7 of the 2 x 4 slots; the profiled
-    # prefill takes the last
-    lens = [1024, 700, 512, 384, 256, 128]
-    rng = np.random.default_rng(SEED + 2)
-    return serve_family(
-        torch, kern, cfg, label=cfg.name, n_engines=2, max_batch=4,
-        max_seq=2048, prompts=seeded_prompts(cfg, lens), steps=16,
-        flash_per_prefill=G, decode_per_step=G,
-        # three SSD kernels per Mamba2 layer (ssd_chunk_state,
-        # ssd_state_pass, ssd_chunk_out)
-        ssd_per_prefill=3 * cfg.n_layers,
-        # the 13 application points' K/V, every layer's f32 SSM state and
-        # conv window, the 4-byte position
-        kv_bytes=2 * G * 2048 * cfg.n_kv_heads * cfg.hd * 2
-        + cfg.n_layers * H * P * N * 4
-        + cfg.n_layers * (cfg.ssm_conv - 1) * (d_in + 2 * N) * 4 + 4,
-        # in bf16 the two paths round at other places through 94 blocks and
-        # part by more than CONSISTENCY_TOL (0.158 on an H100); in f32 they
-        # agree (0.0000, each layer within 2.6e-5: --probe-consistency,
-        # PERF.md section 6), so the check runs on the f32 model and the
-        # bf16 figure is printed beside it
-        consistency=(0, 256, 3), consistency_dtype="float32",
-        profile_prompt=rng.integers(0, cfg.vocab, size=1024).tolist())
-
-
-def serve_rwkv(torch, kern) -> dict:
-    from repro_torch.configs import get_config
-    from repro_torch.models import rwkv
-    cfg = get_config("rwkv6-1.6b")
-    H, K = rwkv.rwkv_dims(cfg)
-    print(f"[serve] {cfg.name} at published width and depth ({cfg.n_layers} "
-          f"layers, d_model {cfg.d_model}, {H} WKV heads of {K}, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab}), {cfg.dtype}; attention-free: no "
-          f"kernel of the port runs on this path", flush=True)
-    lens = [512, 448, 384, 320, 256, 200, 160, 128, 96, 80, 64]
-    return serve_family(
-        torch, kern, cfg, label=cfg.name, n_engines=2, max_batch=8,
-        max_seq=2048, prompts=seeded_prompts(cfg, lens), steps=16,
-        flash_per_prefill=0, decode_per_step=0,
-        # f32 WKV states and both token-shift inputs per layer, at any length
-        kv_bytes=cfg.n_layers * H * K * K * 4 + 2 * cfg.n_layers
-        * cfg.d_model * 4 + 4,
-        consistency=(0, 128, 3))
-
-
-def trace_granite(torch, kern) -> dict:
-    """A short seeded trace through the port's TraceDriver over two granite
-    engines with the torch backend: every admission and migration is a real
-    prefill on the card (40 flash launches each), service times stay the
-    CostModel's. Prints the TraceReport and the measured prefill seconds
-    beside the modeled ones."""
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.core.config import ServingConfig
-    from repro_torch.core.locstore import LocStore, StorageHierarchy, TierSpec
-    from repro_torch.models import model as M
-    from repro_torch.serve.engine import (Router, ServingEngine,
-                                          TorchComputeBackend)
-    from repro_torch.serve.traffic import (CostModel, TraceConfig, TraceDriver,
-                                           generate_trace)
-    cfg = get_config("granite-3-2b")
-    max_seq, max_batch = 1024, 4
-    tcfg = TraceConfig(n_sessions=24, followups_per_session=1.5,
-                       req_rate=40.0, arrival="bursty", max_prompt=384,
-                       max_output=128, seed=SEED)
-    trace = generate_trace(tcfg)
-    print(f"[trace] {cfg.name} full width, 2 engines x {max_batch} slots, "
-          f"max_seq {max_seq}: {len(trace)} requests over "
-          f"{tcfg.n_sessions} sessions (bursty, seed {SEED}, prompts <= "
-          f"{tcfg.max_prompt}, outputs <= {tcfg.max_output}); histories are "
-          f"capped at max_seq", flush=True)
-    torch.cuda.reset_peak_memory_stats()
-    model = M.init_params(cfg, SEED, device="cuda")
-    config = ServingConfig(max_batch=max_batch, max_seq=max_seq)
-    kv = TorchComputeBackend(cfg, max_seq).slot_nbytes()
-    # HBM holds the live slots, the burst buffer 6 parked sessions a node
-    hier = StorageHierarchy(
-        [TierSpec("hbm", max_batch * kv, 3.35e12), TierSpec("bb", 6 * kv, 8e9)],
-        remote=TierSpec("remote", float("inf"), 2e9))
-    store = LocStore(2, hierarchy=hier, write_policy="back")
-    engines = [ServingEngine(cfg, model, config=config, node=i, store=store)
-               for i in range(2)]
-    router = Router(engines, store)
-    cost = CostModel()
-    flash, decode = kern["flash"], kern["decode"]
-    flash.launches = 0
-    decode.launches = 0
-    kern["ssd"].launches = 0
-    t0 = time.perf_counter()
-    rep = TraceDriver(router, trace, cost=cost, warm=True,
-                      max_history=max_seq).run()
-    wall = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    k1, k2, k3 = flash.launches, decode.launches, kern["ssd"].launches
-    s = rep.summary()
-    prefills = sum(e.prefills for e in engines)
-    print(f"  report: " + json.dumps(s), flush=True)
-    print(f"  {prefills} real prefills (new {s['new_sessions']:.0f} + lost "
-          f"{s['lost_reprefills']:.0f} + migrations {s['migrations']:.0f}), "
-          f"{s['resumes']:.0f} resumes, {sum(e.parks for e in engines)} "
-          f"parks; flash_attention launches {k1} (40 x {prefills}); "
-          f"decode_attention launches {k2}; driver wall {wall:.2f}s",
-          flush=True)
-    need(k1 > 0 and k1 == cfg.n_layers * prefills,
-         f"trace: flash launches {k1} != 40 x {prefills}")
-    need(k3 == 0, f"trace: ssd_scan launches {k3}")
-    need(prefills == s["new_sessions"] + s["lost_reprefills"]
-         + s["migrations"], "trace: prefills do not match the report")
-    need(s["requests"] == len(trace) and s["engine_full_errors"] == 0,
-         f"trace: {s['requests']} requests, "
-         f"{s['engine_full_errors']} engine-full errors")
-    mean_prompt = float(np.mean([r.prompt_len for r in trace]))
-    measured = [e.prefill_seconds for e in engines]
-    print(f"  prefill seconds: measured (EMA per engine) {measured}; "
-          f"CostModel at the mean prompt ({mean_prompt:.0f} tokens) "
-          f"{cost.prefill_seconds(int(mean_prompt)):.4f}", flush=True)
-    res = {"report": s, "prefills": prefills,
-           "launches": {"flash_attention": k1, "decode_attention": k2,
-                        "ssd_scan": k3},
-           "prefill_seconds_measured": measured,
-           "prefill_seconds_model": cost.prefill_seconds(int(mean_prompt)),
-           "driver_wall_s": wall,
-           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-    return res
+    return got
 
 
 # ------------------------------------------------------------------ train phase
@@ -3385,10 +2728,8 @@ def dist_phase(torch, kern) -> dict:
               f"{time.perf_counter() - t0:.1f}s", flush=True)
     finally:
         dist.destroy_process_group()
-    sites = hint_sites(torch)
-    free_cuda(torch)
     res = {"deepseek": deepseek, "granite": granite, "tp": tp,
-           "tp_recurrent": recurrent, "hint_sites": sites}
+           "tp_recurrent": recurrent}
     print("  " + json.dumps(res), flush=True)
     return res
 
@@ -3582,95 +2923,14 @@ def ptxas_summary(lines: list[str]) -> list[str]:
     return out
 
 
-def hint_sites(torch) -> dict:
-    """Host cost of the hint sites in one granite-3-2b decode step
-    (published width, 40 layers, B 8): the calls of ``hint`` and
-    ``tp_divides`` counted at the model's bindings over one step, times the
-    host cost of one call of each, timed in a loop here."""
-    import timeit
-
-    from repro_torch.configs import get_config
-    from repro_torch.dist import hints as H
-    from repro_torch.models import layers
-    from repro_torch.models import model as M
-    cfg = get_config("granite-3-2b")
-    model = M.init_params(cfg, SEED, device="cuda")
-    state = M.init_decode_state(cfg, 8, 2048, device="cuda")
-    tok = torch.zeros((8, 1), dtype=torch.int32, device="cuda")
-    counts = {"hint": 0, "tp_divides": 0}
-
-    def counted(name, fn):
-        def wrapper(*a):
-            counts[name] += 1
-            return fn(*a)
-        return wrapper
-
-    orig = {m: (m.hint, m.tp_divides) for m in (M, layers)}
-    for m, (h, t) in orig.items():
-        m.hint, m.tp_divides = counted("hint", h), counted("tp_divides", t)
-    try:
-        with torch.no_grad():
-            M.decode_step(cfg, model, state, tok)
-        torch.cuda.synchronize()
-    finally:
-        for m, (h, t) in orig.items():
-            m.hint, m.tp_divides = h, t
-    x = torch.zeros((8, 1, cfg.d_model), device="cuda")
-    n = 200_000
-    ns_hint = 1e9 * timeit.timeit(lambda: H.hint(x, "dp", None, "tp"),
-                                  number=n) / n
-    ns_tp = 1e9 * timeit.timeit(lambda: H.tp_divides(cfg.n_kv_heads),
-                                number=n) / n
-    us = 1e-3 * (counts["hint"] * ns_hint + counts["tp_divides"] * ns_tp)
-    print(f"[dist] hint sites of one {cfg.name} decode step (B 8, outside "
-          f"rules): {counts['hint']} hint and {counts['tp_divides']} "
-          f"tp_divides calls; {ns_hint:.1f} ns and {ns_tp:.1f} ns a call on "
-          f"this host: {us:.1f} us a step", flush=True)
-    del model, state
-    return {"calls": counts, "ns_hint": ns_hint, "ns_tp_divides": ns_tp,
-            "us_per_step": us}
-
-
-def serve_phase(torch, kern) -> tuple[dict, dict]:
-    """Every family's serve phase in turn (items 4-7 of the docstring), each
-    one's memory freed before the next: granite's result and the kernels'
-    launches by path."""
-    t0 = time.perf_counter()
-    granite = serve_granite(torch, kern)
-    free_cuda(torch)
-    print(f"[serve] granite phase done in {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    t0 = time.perf_counter()
-    gemma = serve_gemma(torch, kern)
-    free_cuda(torch)
-    print(f"[serve] gemma phase done in {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    by_path = {"granite-3-2b": granite["launches"],
-               "gemma3-12b": gemma["launches"]}
-    for name, phase in (("whisper-medium", serve_whisper),
-                        ("llama-3.2-vision-90b", serve_vision),
-                        ("deepseek-v3-671b", serve_deepseek),
-                        ("zamba2-7b", serve_zamba2),
-                        ("rwkv6-1.6b", serve_rwkv)):
-        t0 = time.perf_counter()
-        by_path[name] = phase(torch, kern)["launches"]
-        free_cuda(torch)
-        print(f"[serve] {name} phase done in {time.perf_counter() - t0:.1f}s",
-              flush=True)
-    return granite, by_path
-
-
 def main(argv: list[str]) -> int:
-    sweep = argv == ["--sweep-decode-chunks"]
-    probe = argv == ["--probe-consistency"]
-    serve_only = argv == ["--serve-phase"]
-    ssd_only = argv == ["--time-ssd"]
+    kernels_only = argv == ["--kernels"]
     phase = None
     if argv[:1] == ["--train-phase"] and len(argv) == 4 \
             and argv[2].isdigit() and argv[3].isdigit():
         phase = next((dict(p, B=int(argv[2]), S=int(argv[3]))
                       for p in TRAIN_PHASES if p["arch"] == argv[1]), None)
-    if argv and not (sweep or probe or phase or serve_only or ssd_only):
+    if argv and not (kernels_only or phase):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     import torch
@@ -3722,31 +2982,21 @@ def main(argv: list[str]) -> int:
 
     kern = {"ref": ref, "flash": flash_attention, "decode": decode_attention,
             "ssd": ssd_scan, "chunk_size": chunk_size}
-    if sweep:
-        sweep_decode_chunks(torch, ref)
-        return 0
-    if ssd_only:
-        time_ssd(torch)
-        return 0
-    if probe:
-        probe_consistency(torch)
-        return 0
     if phase:
         train_family(torch, kern, phase)
-        return 0
-    if serve_only:
-        serve_phase(torch, kern)
         return 0
     t0 = time.perf_counter()
     rows = kernel_phase(torch, kern)
     print(f"[kernels] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
-    granite, by_path = serve_phase(torch, kern)
-    t0 = time.perf_counter()
-    trace = trace_granite(torch, kern)
-    free_cuda(torch)
-    by_path["trace granite-3-2b"] = trace["launches"]
-    print(f"[trace] phase done in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    if kernels_only:
+        return 0
+    by_path = {}
+    for spec in SERVE:
+        t0 = time.perf_counter()
+        by_path[spec[0]] = serve_family(torch, kern, *spec)
+        free_cuda(torch)
+        print(f"[serve] {spec[0]} phase done in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     trained = train_granite(torch, kern)
     free_cuda(torch)
@@ -3797,7 +3047,8 @@ def main(argv: list[str]) -> int:
     print(f"[dist] phase done in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # the SSD's kernels replace no TPU kernel: the reference's SSD is plain
-    # jnp; its launches are the zamba2-7b serve phase's
+    # jnp. ``launches``: the serve phase's of granite-3-2b (K1, K2) and of
+    # zamba2-7b (the SSD), checked there against the design
     src_of = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                   "src/repro/kernels/flash_attention.py:127"),
               "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -90,18 +90,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention: q and the caches must start on a "
                          "16-byte boundary (the kernel's vector loads)")
     scale = softmax_scale if softmax_scale is not None else hd ** -0.5
-    return _launch(q, k_cache, v_cache, lengths, window, scale, chunk_size(hd))
-
-
-def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-            lengths: torch.Tensor, window: int, scale: float,
-            chunk: int) -> torch.Tensor:
-    """The kernel at ``chunk`` keys per block, on inputs the wrapper checked
-    (``chip_smoke.py --sweep-decode-chunks`` times other chunk sizes)."""
-    B, Hq, hd = q.shape
-    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    # one block per chunk_size(hd) keys; the chunks' partial states: acc
+    # (n_part, hd) then (m, l) (n_part, 2)
+    chunk = chunk_size(hd)
     lib = _build.load()
-    # the chunks' partial states: acc (n_part, hd) then (m, l) (n_part, 2)
     n_part = chunk_grid(S, chunk) * B * Hq
     out = torch.empty_like(q)
     part = torch.empty(n_part * (hd + 2), dtype=torch.float32,

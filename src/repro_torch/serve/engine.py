@@ -269,38 +269,37 @@ class TorchComputeBackend:
         and dtypes: another state (a new ``init_state``) runs eagerly once
         and is captured again. On the CPU, on meta and on DTensors every
         call runs eagerly."""
-        key = self._graph_key(params, state, tokens)
-        g = self._graph
-        if key is None or (g is None or g.key != key) and self._warm != key:
-            self._warm = key
-            return self._decode_eager(params, state, tokens), state
-        if g is None or g.key != key:
-            g = self._capture(params, state, tokens, key)
+        g = self._graph_for(params, state, tokens)
         with obs.span("decode.upload"):
-            g.host.numpy()[...] = tokens
-            g.tok.copy_(g.host, non_blocking=True)
+            if g is None:
+                tok = torch.as_tensor(tokens, dtype=torch.int64).to(self.device)
+            else:
+                g.host.numpy()[...] = tokens
+                g.tok.copy_(g.host, non_blocking=True)
         with obs.span("decode.launch") as sp:
             if sp.on:
-                sp.set(graphed=1, steps=1)
-            g.graph.replay()
-            decode_attention.launches += g.k2
-            self.graph_replays += 1
+                sp.set(graphed=int(g is not None), steps=1)
+            if g is None:
+                arg = self._step(params, state, tok)
+            else:
+                g.graph.replay()
+                decode_attention.launches += g.k2
+                self.graph_replays += 1
+                arg = g.arg
         with obs.span("decode.readback"):
-            arg = g.arg.cpu().numpy()
-        return arg, state
+            return arg.cpu().numpy(), state
 
-    def _decode_eager(self, params: Pytree, state: Pytree,
-                      tokens: np.ndarray) -> np.ndarray:
-        """One pooled decode step op by op (the path of every call that is
-        not replayed)."""
-        with obs.span("decode.upload"):
-            tok = torch.as_tensor(tokens, dtype=torch.int64).to(self.device)
-        with obs.span("decode.launch") as sp:
-            if sp.on:
-                sp.set(graphed=0, steps=1)
-            arg = self._step(params, state, tok)
-        with obs.span("decode.readback"):
-            return arg.cpu().numpy()
+    def _graph_for(self, params: Pytree, state: Pytree,
+                   tokens: np.ndarray) -> _DecodeGraph | None:
+        """The captured step this call replays (captured here on the second
+        call on a state), or None where the call runs op by op."""
+        key = self._graph_key(params, state, tokens)
+        if self._graph is not None and self._graph.key == key:
+            return self._graph
+        if key is None or self._warm != key:
+            self._warm = key
+            return None
+        return self._capture(params, state, tokens, key)
 
     def _step(self, params: Pytree, state: Pytree,
               tok: torch.Tensor) -> torch.Tensor:

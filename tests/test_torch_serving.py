@@ -29,6 +29,8 @@ from repro_torch.core.locstore import (LocStore, StorageHierarchy, TierSpec,
                                        tiered_hierarchy)
 from repro_torch.core.prefetch import PrefetchEngine
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import decode_step, init_decode_state, init_params
 from repro_torch.models import model as M
 from repro_torch.models import prefill
@@ -526,9 +528,8 @@ def test_every_family_steps_its_state_in_place(arch):
 class _EagerBackend(TorchComputeBackend):
     """Every pooled step op by op: the control of the captured step."""
 
-    @torch.no_grad()
-    def decode(self, params, state, tokens):
-        return self._decode_eager(params, state, tokens), state
+    def _graph_key(self, params, state, tokens):
+        return None
 
 
 # each family's smoke config, and granite-3-2b at published width cut to 4
@@ -537,18 +538,49 @@ CARD_CASES = FAMILY_ARCHS + ["granite-3-2b-4x16"]
 
 
 def _card_case(name):
-    """(cfg, max_batch, max_seq, prompt lengths, decode kernel launches a
-    pooled step)."""
+    """(cfg, max_batch, max_seq, prompt lengths, launches by design: (K1 a
+    prefill, K2 a pooled step, SSD kernels a prefill)). K1 runs once per
+    attention layer (whisper: each encoder layer, and each decoder layer's
+    self and cross attention; zamba2: each application of the shared
+    block), K2 once per attention layer with a cache (whisper: a decoder
+    layer's self and cross; none under MLA), the SSD three kernels per
+    Mamba2 layer; rwkv launches none."""
     if name == "granite-3-2b-4x16":
         cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
         B, S, lens = 16, 2048, [700, 300, 1024, 50, 900]
     else:
         cfg, B, S, lens = get_smoke(name), 4, 128, [20, 9, 33, 14]
-    k2 = {"encdec": 2 * cfg.n_layers, "rwkv": 0,
-          "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
-          "moe": 0 if cfg.mla is not None else cfg.n_layers
-          }.get(cfg.family, cfg.n_layers)
-    return cfg, B, S, lens, k2
+    L = cfg.n_layers
+    k1, k2, k3 = {"encdec": (cfg.encoder_layers + 2 * L, 2 * L, 0),
+                  "rwkv": (0, 0, 0),
+                  "hybrid": (L // max(cfg.attn_every, 1),
+                             L // max(cfg.attn_every, 1), 3 * L),
+                  "moe": (L, 0 if cfg.mla is not None else L, 0)
+                  }.get(cfg.family, (L, L, 0))
+    return cfg, B, S, lens, (k1, k2, k3)
+
+
+def _card_inputs(cfg, lens, device):
+    """The card case's model (vlm gates opened: tanh(0) would cut the cross
+    layers), one seeded prompt of each length, and each prompt's seeded
+    frames or patches (None where the family takes neither)."""
+    model = init_params(cfg, 0, device=device)
+    if cfg.family == "vlm":
+        with torch.no_grad():
+            for xp in model.cross_blocks:
+                xp["gate"].fill_(0.5)
+                xp["gate_mlp"].fill_(0.5)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    key = M._EXTRAS.get(cfg.family)
+    n_extra = cfg.n_frames if key == "frames" else cfg.n_patches
+    extras = [None if key is None else
+              {key: torch.randn((1, n_extra, cfg.d_model), generator=gen,
+                                device=device).to(torch.bfloat16)}
+              for _ in prompts]
+    return model, prompts, extras
 
 
 @pytest.mark.gpu
@@ -559,23 +591,8 @@ def test_captured_step_equals_eager_bit_for_bit(name, cuda):
     and a submit into the freed slot. Tokens are equal at every step, the
     pooled states bit for bit at the end; each replay counts the decode
     kernel's launches it ran; a new state is captured again."""
-    cfg, B, S, lens, k2 = _card_case(name)
-    model = init_params(cfg, 0, device=cuda)
-    if cfg.family == "vlm":              # tanh(0) would cut the cross layers
-        with torch.no_grad():
-            for xp in model.cross_blocks:
-                xp["gate"].fill_(0.5)
-                xp["gate_mlp"].fill_(0.5)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, size=n).tolist() for n in lens]
-    gen = torch.Generator(device=cuda)
-    gen.manual_seed(0)
-    key = M._EXTRAS.get(cfg.family)
-    n_extra = cfg.n_frames if key == "frames" else cfg.n_patches
-    extras = [None if key is None else
-              {key: torch.randn((1, n_extra, cfg.d_model), generator=gen,
-                                device=cuda).to(torch.bfloat16)}
-              for _ in prompts]
+    cfg, B, S, lens, (_, k2, _) = _card_case(name)
+    model, prompts, extras = _card_inputs(cfg, lens, cuda)
     kv = TorchComputeBackend(cfg, S, device=cuda).slot_nbytes()
     engines = [ServingEngine(cfg, model, backend=b, node=0,
                              store=_tiered_store(1, kv, slots_per_node=B),
@@ -615,3 +632,64 @@ def test_captured_step_equals_eager_bit_for_bit(name, cuda):
     assert b.graph_captures == 1
     b.decode(model, state, tokens)
     assert b.graph_captures == 2 and b._graph.key != old
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_router_on_card_launches_and_resumes_as_designed(arch, cuda):
+    """Two engines on one tiered store behind the Router on the card, each
+    family's smoke config (gemma3's prompts of 20 and 33 tokens run past
+    its 16-token window): over 16 pooled steps the kernels launch as the
+    path implies (K1 and the SSD kernels a prefill, K2 a pooled step). A
+    session parked, promoted to hbm by ``Router.warm`` through the
+    PrefetchEngine and resumed by a follow-up without a prefill emits the
+    tokens of a never-parked control of its prompt on the other engine; a
+    live session's follow-up is a hit without a prefill; every session
+    emits a token a step, each in the vocab."""
+    cfg, B, S, lens, (k1, k2, k3) = _card_case(arch)
+    model, prompts, extras = _card_inputs(cfg, lens[:3], cuda)
+    kv = TorchComputeBackend(cfg, S, device=cuda).slot_nbytes()
+    store = _tiered_store(2, kv, slots_per_node=B)
+    engines = [ServingEngine(cfg, model, device=cuda, node=i, store=store,
+                             config=ServingConfig(max_batch=B, max_seq=S))
+               for i in range(2)]
+    prefetch = PrefetchEngine(store)
+    router = Router(engines, store, prefetch=prefetch)
+    n0 = (flash_attention.launches, decode_attention.launches,
+          ssd_scan.launches)
+    try:
+        placed = []
+        for p, x in zip(prompts, extras):
+            eng = router.engine_for()
+            placed.append((eng, eng.submit(p, x)))
+        (a_eng, a_sid), (b_eng, b_sid) = placed[:2]
+        c_eng = next(e for e in engines if e is not a_eng)
+        placed.append((c_eng, c_eng.submit(prompts[0], extras[0])))
+        for i in range(16):
+            if i == 8:
+                a_eng.park(a_sid)
+                assert router.warm(a_sid)
+                prefetch.drain()
+                assert store.stat(_cache_name(a_sid)).tier_on(
+                    a_eng.node) == "hbm"
+                d = router.follow_up(a_sid, a_eng.sessions[a_sid].tokens)
+                assert d.kind == "hit_parked" and d.resumed \
+                    and not d.prefilled, d
+                d = router.follow_up(b_sid, b_eng.sessions[b_sid].tokens)
+                assert d.kind == "hit_live" and not d.prefilled, d
+            for e in engines:
+                e.step()
+        torch.cuda.synchronize()
+    finally:
+        prefetch.shutdown()
+    prefills = sum(e.prefills for e in engines)
+    steps = sum(e.steps for e in engines)
+    assert prefills == 4 and steps == 32
+    assert (flash_attention.launches - n0[0], decode_attention.launches
+            - n0[1], ssd_scan.launches - n0[2]) \
+        == (k1 * prefills, k2 * steps, k3 * prefills)
+    assert a_eng.sessions[a_sid].tokens == \
+        c_eng.sessions[placed[-1][1]].tokens
+    for e, sid in placed:
+        toks = e.sessions[sid].tokens
+        assert len(toks) == 17 and all(0 <= t < cfg.vocab for t in toks)
